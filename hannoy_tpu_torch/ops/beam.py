@@ -1,0 +1,352 @@
+"""Batched beam search over the device-resident HNSW graph.
+
+Counterpart of the unfiltered half of ``hannoy_tpu/ops/beam.py``:
+
+* ``greedy_descend`` ⇔ the ef=1 ``walk_layer`` descent: a batched
+  hill-climb per upper layer — every step gathers each query's current
+  node's M neighbors, computes their distances in one kernel launch, and
+  moves to the best neighbor until no query improves.
+* ``beam_search`` ⇔ ``walk_layer`` with ef>1: a fixed-width sorted pool of
+  ef (dist, id, expanded) triples per query. Each iteration expands the
+  best unexpanded entry, gathers its neighbors, dedups them against the
+  pool with a compare matrix, computes their distances, and sort-merges.
+  A query is done when its best unexpanded distance exceeds its worst
+  pooled distance.
+
+Every hop's distances go through ``beam_cuda.gathered_distances``: the
+hand-written kernel on CUDA tensors, its plain twin on CPU tensors.
+
+JAX's ``lax.while_loop`` becomes ``_while_loop``: the loop condition stays
+on the device as a ``go`` flag that gates each state update, so a row the
+JAX loop would have stopped is never expanded, and the host reads the flag
+only every ``SYNC_EVERY`` iterations.
+
+Not ported yet (ROADMAP.md queue 1): the filtered, by-item and
+cancellable runners, and ``expand > 1``.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from ..models.hnsw import DeviceGraph
+from . import beam_cuda, distances, topk
+from .topk import INF, NO_ID
+
+#: iterations between host reads of a device-side loop flag
+SYNC_EVERY = 8
+
+State = tuple[torch.Tensor, ...]
+
+
+def _while_loop(
+    cond: Callable[[State], torch.Tensor],
+    body: Callable[[State], State],
+    state: State,
+    max_iters: int,
+) -> tuple[State, torch.Tensor]:
+    """``lax.while_loop(cond & (it < max_iters), body, state)`` in eager
+    PyTorch → (final state, int32 count of body executions).
+
+    ``cond`` returns a 0-d bool tensor. Once it is false the state stops
+    changing, exactly as in the JAX loop; the host stops issuing
+    iterations at the next check of the flag."""
+    go = cond(state)
+    iters = torch.zeros((), dtype=torch.int32, device=go.device)
+    for it in range(max_iters):
+        if it % SYNC_EVERY == 0 and not bool(go):
+            break
+        new = body(state)
+        state = tuple(torch.where(go, n, s) for n, s in zip(new, state))
+        iters += go.to(torch.int32)
+        go = go & cond(state)
+    return state, iters
+
+
+def _ix(t: torch.Tensor) -> torch.Tensor:
+    """Slot/row tensor (possibly -1) → int64 gather index, -1 read as 0."""
+    return t.clamp(min=0).long()
+
+
+def candidate_distances(
+    g: DeviceGraph, q: torch.Tensor, qn: torch.Tensor, nbs: torch.Tensor
+) -> torch.Tensor:
+    """Distances from queries [B] to candidate slots [B, K] — the per-hop
+    hot op (entries at -1 read row 0; callers mask them)."""
+    return beam_cuda.gathered_distances(g.metric, g.vectors, g.norms, q, qn, nbs.contiguous())
+
+
+def links_at(g: DeviceGraph, level: int, slots: torch.Tensor) -> torch.Tensor:
+    """Neighbor slots of ``slots [B]`` at ``level`` → [B, M or M0]. Upper
+    layers go through the slot→row indirection into the stacked tables."""
+    safe = _ix(slots)
+    if level == 0:
+        nbs = g.links0[safe]
+    else:
+        rows = g.slot_rows[level - 1][safe]
+        nbs = g.upper_links[level - 1][_ix(rows)]
+        nbs = torch.where((rows >= 0)[:, None], nbs, NO_ID)
+    return torch.where((slots >= 0)[:, None], nbs, NO_ID)
+
+
+def seed_distances(
+    metric: distances.Metric,
+    vectors: torch.Tensor,
+    norms: torch.Tensor,
+    q: torch.Tensor,  # [B, D]
+    qn: torch.Tensor,  # [B]
+    slots: torch.Tensor,  # [B, S] (-1 padded)
+) -> torch.Tensor:
+    """Distances from each query to its seed slots; +inf on padding."""
+    d = beam_cuda.gathered_distances(metric, vectors, norms, q, qn, slots.contiguous())
+    return torch.where(slots >= 0, d, INF)
+
+
+# --------------------------------------------------------------------------
+# Upper-layer greedy descent (ef = 1)
+# --------------------------------------------------------------------------
+
+
+def greedy_descend(
+    g: DeviceGraph,
+    q: torch.Tensor,  # [B, D]
+    qn: torch.Tensor,  # [B]
+    from_level: int,
+    to_level: int,
+    max_steps_per_level: int = 128,
+    node_ok: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Descend layers ``from_level .. to_level`` (inclusive, both >= 1)
+    greedily from the best entry point; returns the best slot per query
+    → [B]. ``node_ok`` (default ``g.valid``) gates which slots the walk
+    may settle on — builders pass exists-and-not-deleted."""
+    if node_ok is None:
+        node_ok = g.valid
+    eps = g.entry_slots[None, :].expand(q.shape[0], -1)
+    d = seed_distances(g.metric, g.vectors, g.norms, q, qn, eps)
+    d = torch.where(node_ok[_ix(eps)] & (eps >= 0), d, INF)
+    best = d.argmin(-1, keepdim=True)
+    cur = eps.gather(1, best)[:, 0]
+    cur_d = d.gather(1, best)[:, 0]
+    for level in range(from_level, to_level - 1, -1):
+        cur, cur_d = _greedy_level(g, q, qn, cur, cur_d, level, max_steps_per_level, node_ok)
+    return cur
+
+
+def _greedy_level(
+    g: DeviceGraph,
+    q: torch.Tensor,
+    qn: torch.Tensor,
+    cur: torch.Tensor,
+    cur_d: torch.Tensor,
+    level: int,
+    max_steps: int,
+    node_ok: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    slot_rows, upper = g.slot_rows[level - 1], g.upper_links[level - 1]
+
+    def body(state):
+        cur, cur_d, _ = state
+        rows = slot_rows[_ix(cur)]
+        nbs = upper[_ix(rows)]  # [B, M]
+        nb_valid = (
+            (nbs >= 0) & (rows >= 0)[:, None] & (cur >= 0)[:, None] & node_ok[_ix(nbs)]
+        )
+        d = torch.where(nb_valid, candidate_distances(g, q, qn, nbs), INF)
+        best = d.argmin(-1, keepdim=True)
+        best_d = d.gather(1, best)[:, 0]
+        best_nb = nbs.gather(1, best)[:, 0]
+        improved = best_d < cur_d
+        return torch.where(improved, best_nb, cur), torch.minimum(best_d, cur_d), improved
+
+    init = (cur, cur_d, torch.ones_like(cur, dtype=torch.bool))
+    (cur, cur_d, _), _ = _while_loop(lambda s: s[2].any(), body, init, max_steps)
+    return cur, cur_d
+
+
+def descend_for_slots(
+    g: DeviceGraph,
+    wave_slots: torch.Tensor,  # [W]
+    from_level: int,
+    to_level: int,
+    max_steps_per_level: int = 128,
+    node_ok: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Greedy descent for a wave of *stored* items: gathers their vectors
+    and walks layers ``from_level..to_level`` → seed slots [W, 1]."""
+    q = g.vectors[_ix(wave_slots)]
+    qn = g.norms[_ix(wave_slots)]
+    ep = greedy_descend(g, q, qn, from_level, to_level, max_steps_per_level, node_ok)
+    return ep[:, None]
+
+
+# --------------------------------------------------------------------------
+# Beam search
+# --------------------------------------------------------------------------
+
+
+class BeamResult(NamedTuple):
+    dists: torch.Tensor  # [B, ef] ascending, +inf padded
+    slots: torch.Tensor  # [B, ef] int32 slot ids, -1 padded
+    iters: torch.Tensor  # [] int32 loop iterations executed
+    #: [B] bool — rows still improving when the loop exited (the iteration
+    #: cap or the tail allowance cut them off)
+    active: Optional[torch.Tensor] = None
+
+
+def _rows_active(pool_d: torch.Tensor, pool_id: torch.Tensor, pool_exp: torch.Tensor) -> torch.Tensor:
+    """Per-row continuation test on a beam pool → [B] bool."""
+    unexp_d = torch.where((pool_exp == 0) & (pool_id != NO_ID), pool_d, INF)
+    best_d = unexp_d.min(-1).values
+    return (best_d <= pool_d[:, -1]) & (best_d < INF)
+
+
+def beam_search(
+    g: DeviceGraph,
+    q: torch.Tensor,  # [B, D]
+    qn: torch.Tensor,  # [B]
+    start: torch.Tensor,  # [B, S] seed slots (-1 padded)
+    ef: int,
+    max_iters: Optional[int] = None,
+    node_ok: Optional[torch.Tensor] = None,
+    level: int = 0,
+    traverse_k: Optional[int] = None,
+    tail_frac: float = 0.0,
+    tail_allow: Optional[int] = None,
+) -> BeamResult:
+    """Unfiltered beam search at ``level`` (builders run it per layer,
+    searches at layer 0).
+
+    ``traverse_k``: expand only the first ``traverse_k`` links of a row.
+    ``node_ok``: traversable-slot mask (default ``g.valid``).
+    ``tail_frac`` / ``tail_allow``: stop once at most this many queries
+    are still active (0 = the reference's termination); builders size the
+    allowance from the real item count of a wave.
+    """
+    if max_iters is None:
+        max_iters = 2 * ef + 16
+    if node_ok is None:
+        node_ok = g.valid
+    if tail_allow is None:
+        tail_allow = int(tail_frac * q.shape[0])
+    state = _seed_pool(g, q, qn, start, ef, node_ok)
+    body, cond = _beam_step(g, q, qn, node_ok, ef, level, traverse_k, tail_allow)
+    (pool_d, pool_id, pool_exp), iters = _while_loop(cond, body, state, max_iters)
+    return BeamResult(pool_d, pool_id, iters, _rows_active(pool_d, pool_id, pool_exp))
+
+
+def _seed_pool(g: DeviceGraph, q, qn, start, ef: int, node_ok) -> State:
+    """Initialize the sorted (dist, id, expanded) pool from seed slots."""
+    B = q.shape[0]
+    seed_ok = (start >= 0) & node_ok[_ix(start)]
+    seeds = torch.where(seed_ok, start, NO_ID)
+    d = seed_distances(g.metric, g.vectors, g.norms, q, qn, seeds)
+    d = torch.where(topk.unique_mask(seeds), d, INF)
+    seeds = torch.where(d < INF, seeds, NO_ID)
+
+    pool_d = torch.full((B, ef), INF, device=q.device)
+    pool_id = torch.full((B, ef), NO_ID, dtype=torch.int32, device=q.device)
+    pool_exp = torch.zeros((B, ef), dtype=torch.int32, device=q.device)
+    pool_d, (pool_id, pool_exp) = topk.merge_sorted(
+        pool_d, (pool_id, pool_exp), d, (seeds, torch.zeros_like(seeds)), ef
+    )
+    return pool_d, pool_id, pool_exp
+
+
+def _beam_step(
+    g: DeviceGraph,
+    q,
+    qn,
+    node_ok,
+    ef: int,
+    level: int,
+    traverse_k: Optional[int] = None,
+    tail_allow: int = 0,
+):
+    """(body, cond) for the beam loop over state (pool_d, pool_id,
+    pool_exp). ``tail_allow``: keep looping only while *more than* this
+    many queries are active."""
+    B = q.shape[0]
+
+    def body(state):
+        pool_d, pool_id, pool_exp = state
+        unexp_d = torch.where((pool_exp == 0) & (pool_id != NO_ID), pool_d, INF)
+        pos = unexp_d.argmin(-1, keepdim=True)  # [B, 1] best unexpanded
+        exp_d = unexp_d.gather(1, pos)
+        active = (exp_d <= pool_d[:, -1:]) & (exp_d < INF)  # [B, 1]
+
+        mark = torch.zeros_like(pool_exp).scatter(1, pos, active.to(pool_exp.dtype))
+        pool_exp = torch.maximum(pool_exp, mark)
+
+        cur = torch.where(active, pool_id.gather(1, pos), NO_ID)
+        ln = links_at(g, level, cur.reshape(-1))
+        if traverse_k is not None and traverse_k < ln.shape[-1]:
+            ln = ln[:, :traverse_k]
+        nbs = ln.reshape(B, -1)
+        ok = (
+            (nbs >= 0)
+            & node_ok[_ix(nbs)]
+            & ~topk.contains(nbs, pool_id)
+            & topk.unique_mask(nbs)
+        )
+        nd = torch.where(ok, candidate_distances(g, q, qn, nbs), INF)
+        nids = torch.where(ok, nbs, NO_ID)
+        pd, (pid, pexp) = topk.merge_sorted(
+            pool_d, (pool_id, pool_exp), nd, (nids, torch.zeros_like(nids)), ef
+        )
+        return pd, pid, pexp
+
+    def cond(state):
+        return _rows_active(*state).sum() > tail_allow
+
+    return body, cond
+
+
+# --------------------------------------------------------------------------
+# Full hnsw_search: descent + layer-0 beam
+# --------------------------------------------------------------------------
+
+
+def default_ef_upper(n_valid: int, ef: int) -> int:
+    """Width of the pooled layer-1 descent (``_descend_start``): the
+    greedy ef=1 walk for small graphs, a pooled layer-1 beam for larger
+    ones (seed diversity on clustered data). The JAX package's defaults;
+    no environment override."""
+    if n_valid >= 500_000:
+        return max(1, min(32, ef))
+    if n_valid >= 16_384:
+        return max(1, min(8, ef))
+    return 1
+
+
+def _descend_start(g: DeviceGraph, q: torch.Tensor, qn: torch.Tensor, ef_upper: int = 1) -> torch.Tensor:
+    """Layer-0 seed slots → [B, S]: the greedy descent through layers
+    L..1 (``ef_upper == 1``), or greedy through L..2 then an
+    ``ef_upper``-wide beam at layer 1."""
+    every_ep = g.entry_slots[None, :].expand(q.shape[0], -1)
+    if g.max_level < 1:
+        return every_ep
+    if ef_upper <= 1:
+        return greedy_descend(g, q, qn, g.max_level, 1)[:, None]
+    if g.max_level >= 2:
+        start = greedy_descend(g, q, qn, g.max_level, 2)[:, None]
+    else:
+        start = every_ep
+    return beam_search(g, q, qn, start, ef_upper, level=1).slots
+
+
+def hnsw_search(
+    g: DeviceGraph,
+    q: torch.Tensor,  # [B, D]
+    qn: torch.Tensor,  # [B]
+    ef: int,
+    max_iters: Optional[int] = None,
+    ef_upper: int = 1,
+) -> BeamResult:
+    """Greedy descent from the entry points through layers L..1, then an
+    ef-wide layer-0 beam (reference hnsw_search). ``ef_upper``: see
+    ``_descend_start``."""
+    start = _descend_start(g, q, qn, ef_upper)
+    return beam_search(g, q, qn, start, ef, max_iters)
