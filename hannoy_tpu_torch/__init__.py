@@ -6,8 +6,10 @@ It imports neither JAX nor ``hannoy_tpu``; the host modules it needs are
 its own copies.
 
 The ported slice is the engine under the JAX package's main path: stage
-items in a ``HostGraph`` → ``build_graph`` (insertion waves) →
-``to_device`` → ``hnsw_search``, with ``flat_topk`` as the exact oracle.
+items in a ``HostGraph`` → ``build_graph`` (insertion waves, or for
+fresh cosine/euclidean builds of >= 8192 items the bulk cluster-blocked
+path, as in the JAX package) → ``to_device`` → ``hnsw_search``, with
+``flat_topk`` as the exact oracle.
 The device is always explicit; nothing picks one by itself. The
 ``Database``/``Writer``/``Reader`` API is not ported yet (ROADMAP.md).
 """

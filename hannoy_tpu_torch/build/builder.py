@@ -1,15 +1,17 @@
 """Wave-parallel HNSW construction — host orchestration.
 
-Counterpart of the insertion-wave path of ``hannoy_tpu/build/builder.py``
-(the path ``BuildOptions(bulk=False)`` selects there): the host samples
-levels, resolves entry points, composes level-descending waves, and
-drives the device steps in ``wave_ops.py``; all distance work runs on the
-device given to ``build_graph``.
+Counterpart of ``hannoy_tpu/build/builder.py``: the host samples levels,
+resolves entry points, composes level-descending waves, and drives the
+device steps in ``wave_ops.py`` and, for large fresh builds, the bulk
+connect in ``bulk.py``; all distance work runs on the device given to
+``build_graph``.
 
-Options outside this path raise ``NotImplementedError`` rather than being
-substituted (see ``_check_supported``): the bulk builder, deletions and
-repair, link slack, chain seeding, ``beam_expand > 1``, ``traverse`` and
-in-wave cancellation are not ported yet (ROADMAP.md queue 1).
+Options outside the ported paths raise ``NotImplementedError`` rather
+than being substituted (see ``_check_supported``): deletions and repair,
+link slack, chain seeding, ``beam_expand > 1``, ``traverse`` and in-wave
+cancellation are not ported yet (ROADMAP.md queue 1). The bulk path runs
+with the JAX package's default knobs, kept as constants here and in
+``bulk.py``.
 """
 
 from __future__ import annotations
@@ -36,6 +38,16 @@ DEFAULT_WAVE = 256
 #: wave sizes snap to these buckets (the JAX package's, kept so both
 #: packages insert the same items in the same waves)
 _WAVE_BUCKETS = (16, 128, 1024, 4096)
+#: insertion rank of "never a candidate" columns (table padding) in the
+#: flat backbone's triangular candidate mask
+_ORDER_INF = np.int32(2**30)
+#: the bulk build's backbone takes exact triangular candidates against
+#: compact member tables while it has at most this many members (a
+#: [W, members] product per wave); above it, ramped beam waves
+BACKBONE_FLAT_MAX = 131072
+#: candidate-pool width of the flat backbone at layer 0 (the α-prune
+#: gathers [W, pool, D])
+BACKBONE_FLAT_POOL = 192
 
 
 def _ramp_width(W: int, n_active: int, divisor: int = 4) -> int:
@@ -90,15 +102,14 @@ class BuildOptions:
     upper_flat_max: int = 65536
     #: candidate-pool width for those exact routing-layer candidates
     upper_flat_pool: int = 384
-    #: None = the JAX package's automatic bulk choice, True forces it,
-    #: False disables it; the port raises wherever bulk would run
+    # ---- bulk (cluster-blocked) fresh-build path — see build/bulk.py ----
+    #: None = auto (fresh cosine/euclidean builds of >= bulk_threshold
+    #: items); True forces it for any eligible fresh build; False disables
     bulk: Optional[bool] = None
     bulk_threshold: int = 8192
 
 
-def _check_supported(
-    g: HostGraph, insert_slots: np.ndarray, deleted_slots: np.ndarray, opts: BuildOptions
-) -> None:
+def _check_supported(g: HostGraph, deleted_slots: np.ndarray, opts: BuildOptions) -> None:
     """Raise ``NotImplementedError`` for anything this port does not build."""
     distances.check_supported(g.metric)
     if len(deleted_slots):
@@ -113,15 +124,6 @@ def _check_supported(
             raise NotImplementedError(f"BuildOptions.{name}={value!r} is not ported yet (ROADMAP.md queue 1)")
     if opts.cancel is not _never_cancel:
         raise NotImplementedError("cancellable builds are not ported yet (ROADMAP.md queue 1)")
-    # the insertion schedule plan_build will make: the new items plus the
-    # surviving old entry points, which are re-inserted
-    scheduled = set(int(s) for s in insert_slots) | set(int(e) for e in g.entry_slots)
-    n_active = int(g.valid_mask().sum()) - sum(1 for s in scheduled if g.levels[s] >= 0)
-    if bulk.eligible(g.metric, n_active, 0, len(scheduled), opts):
-        raise NotImplementedError(
-            "this build would take the JAX package's bulk path, which is not ported yet "
-            "(ROADMAP.md queue 1); pass BuildOptions(bulk=False) for the insertion-wave path"
-        )
 
 
 def prepare_entry_points(
@@ -262,21 +264,26 @@ def build_graph(
     *,
     device,
 ) -> BuildStats:
-    """Run a build of the staged items on ``device`` (insertion waves).
+    """Run a build of the staged items on ``device``.
+
+    Large fresh cosine/euclidean builds take the bulk path
+    (``bulk.eligible``): the level >= 1 items are inserted first by waves
+    (the navigability backbone), then ``bulk.bulk_build`` connects the
+    level-0 items. Every other build inserts all items by waves.
 
     Preconditions: vectors/norms for ``insert_slots`` are staged in ``g``.
     Raises ``NotImplementedError`` for what the port does not build yet.
     """
-    _check_supported(g, insert_slots, deleted_slots, opts)
+    _check_supported(g, deleted_slots, opts)
     stats = stats or BuildStats()
     device = torch.device(device)
 
     slots, lvls, active, exists_ok = plan_build(g, insert_slots, deleted_slots, opts, stats)
 
     dev = hnsw.to_device(g, device)
-    dev.valid = torch.from_numpy(active).to(device)
+    dev.valid = torch.tensor(active, device=device)
     # beam traversal may seed/visit anything that exists
-    node_ok = torch.from_numpy(exists_ok).to(device)
+    node_ok = torch.tensor(exists_ok, device=device)
 
     # ---- insertion waves, level-descending (hnsw.rs:160-185) ----
     opts.progress.update(BuildStep.BUILDING_THE_GRAPH)
@@ -287,26 +294,68 @@ def build_graph(
     counters = torch.zeros((4,), dtype=torch.int32, device=device)
 
     # compact member tables for exact routing-layer candidates
-    flat_tabs: dict[int, torch.Tensor] = {}
+    flat_tabs_np: dict[int, np.ndarray] = {}
     for level in range(1, g.max_level + 1):
         mem = _layer_members(g, level)
         if 0 < len(mem) <= opts.upper_flat_max:
-            flat_tabs[level] = torch.from_numpy(_padded_table(mem)).to(device)
+            flat_tabs_np[level] = _padded_table(mem)
+
+    # the bulk path builds layer 0 of every level-0 item; the level >= 1
+    # items (the navigability backbone) go through the waves below first,
+    # all the way to layer 0, laying down the long edges a pure-kNN layer
+    # lacks
+    use_bulk = bulk.eligible(g.metric, n_active, 0, len(slots), opts)
+    backbone_on = use_bulk and bool((lvls > 0).any())
+    if use_bulk:
+        groups = [(lv, slots[lvls == lv]) for lv in sorted({int(x) for x in lvls[lvls > 0]}, reverse=True)]
+    else:
+        groups = [(lv, slots[lvls == lv]) for lv in sorted({int(x) for x in lvls}, reverse=True)]
+    # the backbone is a fresh sub-build: let its ramp reach the widest bucket
+    W_groups = max(opts.wave_size, _WAVE_BUCKETS[-1]) if backbone_on else opts.wave_size
+
+    # ---- flat backbone: exact triangular candidates, full-width waves ----
+    # Column j of a member table is a candidate for backbone item i iff j
+    # comes before i in the backbone's insertion sequence (groups, level
+    # descending), so a wave needs no ramp and no beam.
+    flat_orders = None
+    bb_all = np.concatenate([grp for _, grp in groups]) if backbone_on else np.empty(0, np.int64)
+    if backbone_on and len(bb_all) <= BACKBONE_FLAT_MAX:
+        slot_order = np.full(g.capacity, _ORDER_INF, dtype=np.int32)
+        slot_order[active] = -1  # already-active slots: always visible
+        slot_order[bb_all] = np.arange(len(bb_all), dtype=np.int32)
+        # every level >= 1 with at most BACKBONE_FLAT_MAX members gets a
+        # table: the first full-width wave has no other candidate source
+        for level in range(1, g.max_level + 1):
+            mem = _layer_members(g, level)
+            if level not in flat_tabs_np and 0 < len(mem) <= BACKBONE_FLAT_MAX:
+                flat_tabs_np[level] = _padded_table(mem)
+        flat_tabs_np[0] = _padded_table(bb_all)
+        flat_orders = {
+            level: torch.tensor(np.where(tab >= 0, slot_order[np.maximum(tab, 0)], _ORDER_INF), device=device)
+            for level, tab in flat_tabs_np.items()
+        }
+    flat_tabs = {level: torch.tensor(tab, device=device) for level, tab in flat_tabs_np.items() if level > 0}
+    bb_tab0 = torch.tensor(flat_tabs_np[0], device=device) if flat_orders is not None else None
 
     # already-inserted slots, tracked only inside the flat bootstrap
     active_ids = np.nonzero(active)[0].astype(np.int64)
+    bb_base = 0  # insertion rank of the group's first item in the backbone
 
-    for lv in sorted(set(int(x) for x in lvls), reverse=True):
-        grp = slots[lvls == lv]
+    for lv, grp in groups:
         start = 0
         while start < len(grp):
-            w_pad = _ramp_width(opts.wave_size, n_active)
+            if bb_tab0 is not None:
+                # triangular visibility needs no ramp: full-width waves
+                w_pad = min(_WAVE_BUCKETS[-1], 1 << max(4, int(len(grp) - start - 1).bit_length()))
+            else:
+                w_pad = _ramp_width(W_groups, n_active)
             chunk = grp[start : start + w_pad]
-            start += len(chunk)
             wave = np.full(w_pad, -1, dtype=np.int32)
             wave[: len(chunk)] = chunk
             flat0 = None
-            if n_active <= FLAT_BOOTSTRAP:
+            if bb_tab0 is not None:
+                flat0 = bb_tab0
+            elif n_active <= FLAT_BOOTSTRAP:
                 tab0 = np.full(FLAT_BOOTSTRAP, -1, dtype=np.int32)
                 tab0[: len(active_ids)] = active_ids[:FLAT_BOOTSTRAP]
                 flat0 = torch.from_numpy(tab0).to(device)
@@ -314,7 +363,9 @@ def build_graph(
                 dev, dirty, counters = _insert_wave(
                     dev, wave, lv, opts, n_active, node_ok, dirty, counters, g.m0,
                     n_real=len(chunk), flat_tabs=flat_tabs, flat0=flat0,
+                    flat_orders=flat_orders, flat_row_base=bb_base + start,
                 )
+            start += len(chunk)
             wave_ops.activate_wave(dev, torch.from_numpy(wave).to(device))
             if len(active_ids) <= FLAT_BOOTSTRAP:
                 # kept ascending so flat-candidate ties break as in a full scan
@@ -323,6 +374,19 @@ def build_graph(
             done += len(chunk)
             stats.waves += 1
             opts.progress.update(InsertItemsStep(done, total))
+        bb_base += len(grp)
+
+    # ---- bulk cluster-blocked connect of the level-0 items ----
+    if use_bulk:
+        # every item goes live: the connect reads rows of any member
+        dev.valid = torch.tensor(exists_ok, device=device)
+        with span("bulk_build", inserts=len(slots), max_level=g.max_level):
+            dev, dirty, counters = bulk.bulk_build(
+                g, dev, slots, lvls, opts, dirty, counters,
+                connect_mask=(lvls == 0) if backbone_on else None,
+            )
+        stats.waves += 1
+        opts.progress.update(InsertItemsStep(total, total))
 
     # ---- end-of-build stranding re-check ----
     # Rows with no forward links are re-inserted with exact candidates over
@@ -378,18 +442,25 @@ def _insert_wave(
     n_real: Optional[int] = None,
     flat_tabs: Optional[dict] = None,
     flat0: Optional[torch.Tensor] = None,
+    flat_orders: Optional[dict] = None,
+    flat_row_base: int = 0,
 ):
     """Insert one wave: greedy descent to lv+1, then per-level candidates
     + prune + connect, chaining each level's pruned set as the next
     level's seeds (hnsw.rs:291-328). ``flat_tabs`` maps routing levels to
-    compact member tables; ``flat0`` is the level-0 bootstrap table."""
+    compact member tables; ``flat0`` is the level-0 bootstrap table.
+    ``flat_orders`` (the flat backbone) maps levels to the insertion rank
+    of each table column, ``flat_row_base`` is the rank of wave row 0:
+    candidates are then triangular, and ``flat0`` is the backbone's
+    level-0 table, used whatever the active count."""
     wave_t = torch.from_numpy(wave).to(dev.device)
-    use_flat = n_active <= FLAT_BOOTSTRAP
+    backbone = flat_orders is not None
+    use_flat = n_active <= FLAT_BOOTSTRAP and not backbone
 
     def _fm(level: int):
         """Compact member table for exact candidates at ``level``."""
         if level == 0:
-            return flat0 if use_flat else None
+            return flat0 if (use_flat or backbone) else None
         return flat_tabs.get(level) if flat_tabs is not None else None
 
     top = min(lv, dev.max_level)
@@ -408,19 +479,25 @@ def _insert_wave(
 
     for level in range(top, -1, -1):
         fm = _fm(level)
+        if fm is not None and level > 0:
+            ef = max(opts.ef_construction, opts.upper_flat_pool)
+        elif level == 0 and backbone:
+            # a wider exact pool keeps ring diversity, bounded: the prune
+            # gathers [W, pool, D]
+            ef = max(opts.ef_construction, BACKBONE_FLAT_POOL)
+        else:
+            ef = opts.ef_construction
         dev, selected, dirty, counters = wave_ops.wave_insert_level(
             dev, wave_t, seeds, node_ok, level, dirty, counters,
-            ef=(
-                max(opts.ef_construction, opts.upper_flat_pool)
-                if fm is not None and level > 0
-                else opts.ef_construction
-            ),
+            ef=ef,
             cap=m0 if level == 0 else dev.upper_links.shape[-1],
             alpha=opts.alpha,
             flat=use_flat and fm is None,
             beam_iters=opts.beam_iters,
             beam_tail_allow=int(tail * tail_base),
             flat_members=fm,
+            flat_col_order=flat_orders.get(level) if backbone else None,
+            flat_row_base=flat_row_base,
         )
         seeds = selected
     return dev, dirty, counters

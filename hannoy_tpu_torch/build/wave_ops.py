@@ -13,8 +13,9 @@ before it writes). JAX's ``.at[...].set(mode="drop")`` scatters become
 masked index assignments on int64 indices; their destinations never
 repeat except where noted.
 
-Not ported yet (ROADMAP.md queue 1): the streamed reverse merge, slack
-rows, prototype seeding, deletion repair, link-distance refill.
+``reverse_merge_edges_streamed`` is the bulk connector's global variant
+of the reverse merge. Not ported yet (ROADMAP.md queue 1): slack rows,
+prototype seeding, deletion repair, link-distance refill.
 """
 
 from __future__ import annotations
@@ -42,6 +43,9 @@ CNT_BEAM_ITERS = 2
 CNT_ROW_GATHERS = 3  # unit: 1024 gathered rows
 GATHER_GRANULE = 1024
 
+#: destinations per phase-A step of the streamed reverse merge (bounds
+#: its [CH, 2·cap, 2·cap] duplicate mask)
+CHUNK_A = 8192
 #: rows per reverse-merge α-prune step (bounds the [CH, K, D] gather)
 CHUNK_B = 2048
 
@@ -125,16 +129,23 @@ def wave_insert_level(
     beam_iters: Optional[int] = None,
     beam_tail_allow: int = 0,
     flat_members: Optional[torch.Tensor] = None,  # [U] compact member slots (-1 pad)
+    flat_col_order: Optional[torch.Tensor] = None,  # [U] insertion rank per column
+    flat_row_base: int = 0,  # insertion rank of wave row 0
 ) -> WaveLevelResult:
     """Insert one wave at one level (the batched hnsw.rs:312-327 body).
 
     1. candidate search: a beam at ``level``, exact top-ef against a
-       compact member table (``flat_members``; candidates are the
-       already-active members), or exact over every live slot (``flat``).
-       Member tables wider than 8192 are where the JAX package switches
-       to ``lax.approx_max_k``; the port always takes the exact top-k,
-       so it differs there only in what the approximate selection
-       misses (level 1 of a 100k build at m=16 has about 6.3k members);
+       compact member table (``flat_members``), or exact over every live
+       slot (``flat``). Against a member table the candidates are the
+       already-active members or, with ``flat_col_order``, triangular
+       insertion-order visibility: column j is a candidate for wave row i
+       iff ``flat_col_order[j] < flat_row_base + i`` (already active
+       columns carry rank -1, columns never visible 2**30), so one wave
+       can carry a whole level group. Member tables wider than 8192 are
+       where the JAX package switches to ``lax.approx_max_k``; the port
+       always takes the exact top-k, so it differs there only in what the
+       approximate selection misses (level 1 of a 100k build at m=16 has
+       about 6.3k members);
     2. α-prune → forward row scatter;
     3. deterministic reverse-edge merge with overflow α-prune;
     4. at layer 0, the stranded-insert guarantee (``_ensure_inbound``).
@@ -150,8 +161,12 @@ def wave_insert_level(
     if flat_members is not None:
         mem = _ix(flat_members)
         d_mat = distances.matrix_distances(metric, q, qn, g.vectors[mem], g.norms[mem])
-        ok_col = (flat_members >= 0) & g.valid[mem]
-        d_mat = torch.where(ok_col[None, :], d_mat, INF)
+        if flat_col_order is not None:
+            row_ord = flat_row_base + torch.arange(W, device=q.device)
+            ok_col = flat_col_order[None, :] < row_ord[:, None]
+        else:
+            ok_col = ((flat_members >= 0) & g.valid[mem])[None, :]
+        d_mat = torch.where(ok_col, d_mat, INF)
         cand_d, idx = topk.smallest_k(d_mat, min(ef, flat_members.shape[0]))
         cand_ids = torch.where(torch.isfinite(cand_d), flat_members[idx], NO_ID)
         cand_ids, cand_d = _pad_cols(cand_ids, cand_d, ef)
@@ -282,6 +297,61 @@ def _reverse_prune_overflow(g: DeviceGraph, level: int, u_dst, inc_ids, inc_d, o
         counters[CNT_REV_DELTA] += ((m_ids != NO_ID).sum(-1) - (row_ids != NO_ID).sum(-1)).sum()
         _set_level_rows(g, level, dst_c, m_ids, m_d)
     return g, counters
+
+
+def reverse_merge_edges_streamed(
+    g: DeviceGraph,
+    level: int,
+    src_slots: torch.Tensor,  # [n_pad] edge sources (-1 padded)
+    sel_ids: torch.Tensor,  # [n_pad, cap] each source's selected destinations
+    sel_d: torch.Tensor,  # [n_pad, cap]
+    counters: torch.Tensor,
+    cap: int,
+    alpha: float,
+    inc_cap: int,
+) -> tuple[DeviceGraph, torch.Tensor, torch.Tensor]:
+    """The bulk connector's reverse merge: ONE (destination, distance) sort
+    over every reverse edge of the layer, and every destination merged
+    exactly once with its ``inc_cap`` nearest incoming edges (edges beyond
+    that rank would lose the α-prune against nearer ones anyway).
+
+    Each destination's incoming edges are a window of its segment in the
+    sorted edge list (``[U, inc_cap]`` tables, not ``[E, inc_cap]``).
+    Phase A runs over the unique destinations in ``CHUNK_A`` steps, phase
+    B over the rows that overflowed in ``CHUNK_B`` steps; destinations are
+    distinct, so the chunking does not change the result. (Phase B takes
+    the overflow list as it is and never re-reads a merged destination,
+    which the JAX package's unpadded phase-B slice can do when its chunk
+    size does not divide the table.)
+
+    Returns (graph, counters, u_dst [U] unique destinations touched).
+    """
+    dst = sel_ids.reshape(-1)
+    src = src_slots.repeat_interleave(sel_ids.shape[1])
+    rd = sel_d.reshape(-1)
+    key = torch.where((dst != NO_ID) & (src != NO_ID), dst, _KEY_LAST)
+    order = _lexsort2(key, rd)
+    key_s, rd_s, src_s = key[order], rd[order], src[order]
+    live = key_s != _KEY_LAST  # live edges sort before every dead one
+    first = torch.ones_like(live)
+    first[1:] = key_s[1:] != key_s[:-1]
+    starts = torch.nonzero(first & live)[:, 0]  # [U] segment starts
+    u_dst = key_s[starts]
+    ends = torch.cat([starts[1:], live.sum().reshape(1)])
+    rank = torch.arange(inc_cap, device=dst.device)[None, :]
+    window = (starts[:, None] + rank).clamp(max=max(dst.shape[0] - 1, 0))
+    in_seg = rank < (ends - starts)[:, None]
+    inc_ids = torch.where(in_seg, src_s[window], NO_ID)
+    inc_d = torch.where(in_seg, rd_s[window], INF)
+
+    over = []
+    for p0 in range(0, u_dst.shape[0], CHUNK_A):
+        part = slice(p0, p0 + CHUNK_A)
+        g, counters, o = _reverse_cheap_merge(g, level, u_dst[part], inc_ids[part], inc_d[part], counters)
+        over.append(o + p0)
+    over = torch.cat(over) if over else starts
+    g, counters = _reverse_prune_overflow(g, level, u_dst, inc_ids, inc_d, over, counters, cap, alpha)
+    return g, counters, u_dst
 
 
 def _ensure_inbound(

@@ -14,7 +14,8 @@ fallback from one to the other.
 
 The kernel is built at first use with ``nvcc`` for ``sm_90a`` into
 ``hannoy_tpu_torch/_build/``, keyed by a hash of the source, and loaded
-with ``ctypes``. ``KERNEL.launches`` counts the launches.
+with ``ctypes``. ``KERNEL.launches`` counts the launches, and
+``KERNEL.by_shape`` counts them per ``(B, K)``.
 """
 
 from __future__ import annotations
@@ -58,9 +59,14 @@ class GatherKernel:
     def __init__(self) -> None:
         self.lib = None
         self.launches = 0
+        self.by_shape: dict[tuple[int, int], int] = {}
         #: nvcc's output of the last build (``-Xptxas -v``), "" if cached
         self.build_log = ""
         self.build_seconds = 0.0
+
+    def reset_counts(self) -> None:
+        self.launches = 0
+        self.by_shape = {}
 
     def library_path(self) -> Path:
         digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
@@ -160,4 +166,5 @@ def gathered_distances(
     if rc != 0:
         raise RuntimeError(f"gather_distances kernel launch failed: CUDA error {rc}")
     KERNEL.launches += 1
+    KERNEL.by_shape[(b, k)] = KERNEL.by_shape.get((b, k), 0) + 1
     return out

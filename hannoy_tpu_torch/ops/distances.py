@@ -12,7 +12,8 @@ The metric table, ``np_norms`` and ``np_pairwise`` are the JAX package's
 numpy code, copied for the three f32 metrics. Everything here covers
 those metrics in f32; the packed metrics (hamming, binary quantized) and
 the bf16/int8 storage tiers are not ported yet and raise
-``NotImplementedError``.
+``NotImplementedError`` (``block_distances`` covers cosine and
+euclidean, as the JAX package's does for f32 rows).
 
 Precision: f32 matrix products must run in full f32, as the JAX package's
 ``Precision.HIGHEST`` does. On CUDA that needs
@@ -31,9 +32,10 @@ from .codecs import BINARY, BQ, F32
 
 _EPS = np.float32(1.1920929e-07)  # f32::EPSILON
 
-#: the α-prune's candidate Gram (``prune.pairwise_block``) rounds its f32
-#: inputs to bf16 for the dot metrics, as the JAX package does by default
-#: (its ``HANNOY_TPU_BULK_BF16=1``)
+#: the α-prune's candidate Gram (``prune.pairwise_block``), the bulk
+#: builder's cluster blocks (``block_distances``) and its k-means round
+#: their f32 inputs to bf16 for the dot metrics, as the JAX package does
+#: by default (its ``HANNOY_TPU_BULK_BF16=1``)
 BULK_BF16 = True
 
 
@@ -174,3 +176,37 @@ def matrix_distances(
     q2 = (q * q).sum(-1)
     n2 = (db * db).sum(-1)
     return (q2[:, None] + n2[None, :] - 2.0 * dots).clamp(min=0.0)
+
+
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to bf16 and held in f32: a product of two such tensors
+    is exact, as the TPU's bf16×bf16→f32 is, and only its summation order
+    differs (a bf16 product on CUDA would round its output to bf16)."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def block_distances(
+    metric: Metric,
+    q: torch.Tensor,  # [G, S, D] row blocks
+    q_norm: torch.Tensor,  # [G, S]
+    c: torch.Tensor,  # [G, T, D] column blocks
+    c_norm: torch.Tensor,  # [G, T]
+) -> torch.Tensor:
+    """Batched block distance matrices → [G, S, T]: the bulk builder's
+    cluster-block candidate op, one batched matrix product.
+
+    With ``BULK_BF16`` both operands are rounded to bf16 first, and the
+    euclidean norms are taken from the rounded rows, as in the JAX
+    package. f32 manhattan would materialise [G, S, T, D] and stays on the
+    wave path (``ValueError``, as there)."""
+    name = check_supported(metric)
+    if name == "manhattan":
+        raise ValueError(f"block_distances supports dot metrics only, got {name}")
+    if BULK_BF16:
+        q, c = bf16_round(q), bf16_round(c)
+    dots = torch.bmm(q, c.transpose(1, 2))
+    if name == "cosine":
+        return cosine_from_dots(dots, q_norm[:, :, None] * c_norm[:, None, :])
+    q2 = (q * q).sum(-1)
+    c2 = (c * c).sum(-1)
+    return (q2[:, :, None] + c2[:, None, :] - 2.0 * dots).clamp(min=0.0)

@@ -34,7 +34,7 @@ def pairwise_block(
     if name == "manhattan":
         return torch.cdist(vecs, vecs, p=1.0)
     if distances.BULK_BF16:
-        vecs = vecs.to(torch.bfloat16).to(torch.float32)
+        vecs = distances.bf16_round(vecs)
     dots = torch.bmm(vecs, vecs.transpose(1, 2))
     if name == "cosine":
         return distances.cosine_from_dots(dots, norms[:, :, None] * norms[:, None, :])

@@ -23,7 +23,8 @@ from hannoy_tpu.build import wave_ops as jax_wave_ops
 from hannoy_tpu.models import hnsw as jax_hnsw
 from hannoy_tpu.ops import beam as jax_beam
 from hannoy_tpu.ops import distances as jax_distances
-from hannoy_tpu_torch.build import builder, wave_ops
+from hannoy_tpu_torch.build import builder, bulk, wave_ops
+from hannoy_tpu_torch.build.bulk import bulk_build
 from hannoy_tpu_torch.models import hnsw
 from hannoy_tpu_torch.ops import beam, distances
 
@@ -207,7 +208,6 @@ def test_whole_build_matches_jax(ref, name):
 @pytest.mark.parametrize(
     "change",
     [
-        dict(bulk=True),
         dict(link_slack=4),
         dict(chain_seeding=True),
         dict(beam_expand=2),
@@ -224,16 +224,36 @@ def test_unported_options_raise(change):
                             dataclasses.replace(_opts(builder), **change), device="cpu")
 
 
-def test_bulk_default_and_deletions_raise():
+def test_deletions_raise():
     data, _ = _data()
     g = _stage(hnsw, data)
-    # bulk=None picks the bulk path at >= bulk_threshold fresh items
-    with pytest.raises(NotImplementedError):
-        builder.build_graph(g, np.arange(N, dtype=np.int64), np.empty(0, np.int64),
-                            builder.BuildOptions(bulk_threshold=1000), device="cpu")
     with pytest.raises(NotImplementedError):
         builder.build_graph(g, np.arange(N, dtype=np.int64), np.asarray([3]), _opts(builder), device="cpu")
     assert (g.levels == -1).all()  # nothing was planned before raising
+
+
+@pytest.mark.parametrize("flat_max", [builder.BACKBONE_FLAT_MAX, 0], ids=["flat_backbone", "beam_backbone"])
+def test_bulk_default_builds_valid_graph(monkeypatch, flat_max):
+    """bulk=None picks the bulk path at >= bulk_threshold fresh items; its
+    backbone takes exact triangular candidates, or ramped beam waves once
+    it has more than BACKBONE_FLAT_MAX members."""
+    data, queries = _data()
+    g = _stage(hnsw, data)
+    ran = []
+    monkeypatch.setattr(bulk, "bulk_build", lambda *a, **k: ran.append(1) or bulk_build(*a, **k))
+    monkeypatch.setattr(builder, "BACKBONE_FLAT_MAX", flat_max)
+    stats = builder.build_graph(g, np.arange(N, dtype=np.int64), np.empty(0, np.int64),
+                                builder.BuildOptions(ef_construction=EFC, bulk_threshold=1000), device="cpu")
+    assert ran == [1] and stats.links_added > 0
+    g.check_validity()
+    live = g.valid_mask()
+    indeg = np.bincount(g.links0[live][g.links0[live] >= 0], minlength=g.capacity)
+    assert (indeg[live] >= 1).all()
+    q, qn = _queries(torch.from_numpy, queries)
+    res = beam.hnsw_search(hnsw.to_device(g, "cpu", serve_only=True), q, qn, 48)
+    rec = _oracle_recall(res.dists.numpy(), data, queries)
+    print(f"default bulk build at N={N}, BACKBONE_FLAT_MAX={flat_max}: recall@10 {rec:.4f}")
+    assert rec >= 0.9
 
 
 def test_force_inbound_for_matches_jax(ref):

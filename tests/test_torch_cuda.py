@@ -5,7 +5,8 @@ machine with one (and without JAX, so without ``tests/conftest.py``):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerances: the kernel sums each row in another order than the twin, so
-cosine agrees to atol 1e-5 and sqL2/L1 to rtol 1e-5.
+cosine agrees to atol 1e-5 and sqL2/L1 to rtol 1e-5; the bulk build's
+block distances agree to atol 1e-5 on unit-scale rows.
 """
 
 import numpy as np
@@ -43,10 +44,11 @@ def _inputs(seed, n, d, b, k, name):
 def test_kernel_matches_twin(cuda, name, dim):
     metric = distances.by_name(name)
     x, nrm, q, qn, idx = (t.to(cuda) for t in _inputs(11, 3000, dim, 67, 29, name))
-    before = beam_cuda.KERNEL.launches
+    before, before_shape = beam_cuda.KERNEL.launches, beam_cuda.KERNEL.by_shape.get((67, 29), 0)
     got = beam_cuda.gathered_distances(metric, x, nrm, q, qn, idx)
     torch.cuda.synchronize()
     assert beam_cuda.KERNEL.launches == before + 1
+    assert beam_cuda.KERNEL.by_shape[(67, 29)] == before_shape + 1
     want = beam_cuda.gathered_distances_plain(metric, x, nrm, q, qn, idx)
     tol = dict(rtol=0, atol=1e-5) if name == "cosine" else dict(rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(got, want, **tol)
@@ -97,3 +99,69 @@ def test_build_and_search_on_cuda_match_cpu(cuda):
     res_cpu = beam.hnsw_search(hnsw.to_device(a, "cpu"), q, qn, 48)
     res_gpu = beam.hnsw_search(hnsw.to_device(b, cuda), q.to(cuda), qn.to(cuda), 48)
     assert float((res_cpu.slots == res_gpu.slots.cpu()).float().mean()) >= 0.98
+
+
+def _bulk_built(dev, data):
+    n, d = data.shape
+    g = hnsw.HostGraph.empty(distances.COSINE, d, 8, 16, capacity=hnsw.slot_capacity(n))
+    for i in range(n):
+        g.alloc_slot(i)
+    g.vectors[:n] = data
+    g.norms[:n] = distances.np_norms(distances.COSINE, data)
+    before = beam_cuda.KERNEL.launches
+    builder.build_graph(g, np.arange(n), np.empty(0, np.int64),
+                        builder.BuildOptions(ef_construction=32, bulk=True), device=dev)
+    assert (beam_cuda.KERNEL.launches > before) == (dev != "cpu")
+    g.check_validity()
+    return g
+
+
+def _clustered(n=6000, d=32):
+    rng = np.random.default_rng(42)
+    centers = rng.standard_normal((n // 256, d)).astype(np.float32) * 4.0
+    data = (centers[rng.integers(0, len(centers), n)] + rng.standard_normal((n, d))).astype(np.float32)
+    queries = (centers[rng.integers(0, len(centers), 64)] + rng.standard_normal((64, d))).astype(np.float32)
+    return data, queries
+
+
+def test_bulk_build_on_cuda_matches_cpu(cuda):
+    """The bulk build at 6000 × 32 on the card against the CPU build: the
+    block products and k-means sums run in another order, so near-ties may
+    flip (95% of links0 rows identical, recall within 0.02)."""
+    data, queries = _clustered()
+    a, b = _bulk_built("cpu", data), _bulk_built(cuda, data)
+    assert np.array_equal(a.levels, b.levels) and a.entry_slots == b.entry_slots
+    live = a.valid_mask()
+    share = float(np.mean(np.all(a.links0[live] == b.links0[live], axis=1)))
+    print(f"bulk build cuda vs cpu: identical links0 rows {share:.4f}")
+    assert share >= 0.95
+    qn = distances.np_norms(distances.COSINE, queries)
+    exact = distances.np_pairwise(distances.COSINE, queries, qn, data, a.norms[: len(data)])
+    kth = np.sort(exact, axis=1)[:, 9:10] + 1e-5
+    recalls = []
+    for g, dev in ((a, "cpu"), (b, cuda)):
+        res = beam.hnsw_search(hnsw.to_device(g, dev), torch.from_numpy(queries).to(dev), torch.from_numpy(qn).to(dev), 64)
+        recalls.append(float((res.dists[:, :10].cpu().numpy() <= kth).mean()))
+    print(f"recall@10 cpu {recalls[0]:.4f} cuda {recalls[1]:.4f}")
+    assert recalls[1] >= recalls[0] - 0.02
+
+
+def test_bulk_build_on_cuda_is_deterministic(cuda):
+    data, _ = _clustered()
+    a, b = _bulk_built(cuda, data), _bulk_built(cuda, data)
+    assert np.array_equal(a.links0, b.links0) and np.array_equal(a.dists0, b.dists0)
+    for ua, ub in zip(a.upper_links, b.upper_links):
+        assert np.array_equal(ua, ub)
+
+
+@pytest.mark.parametrize("name", ["cosine", "euclidean"])
+def test_block_distances_on_cuda_match_cpu(cuda, name):
+    rng = np.random.default_rng(14)
+    q = torch.from_numpy((rng.standard_normal((4, 96, 768)) / np.sqrt(768)).astype(np.float32))
+    c = torch.from_numpy((rng.standard_normal((4, 700, 768)) / np.sqrt(768)).astype(np.float32))
+    qn, cn = q.norm(dim=-1), c.norm(dim=-1)
+    metric = distances.by_name(name)
+    want = distances.block_distances(metric, q, qn, c, cn)
+    got = distances.block_distances(metric, q.to(cuda), qn.to(cuda), c.to(cuda), cn.to(cuda))
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5)

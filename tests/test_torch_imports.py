@@ -13,8 +13,9 @@ PORT_FILES = sorted((REPO / "hannoy_tpu_torch").rglob("*.py")) + [REPO / "chip_s
 def test_port_imports_with_jax_blocked():
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['hannoy_tpu'] = None; "
-        "import hannoy_tpu_torch, hannoy_tpu_torch.build.builder, hannoy_tpu_torch.ops.beam, "
-        "hannoy_tpu_torch.ops.beam_cuda, hannoy_tpu_torch.models.flat"
+        "import hannoy_tpu_torch, hannoy_tpu_torch.build.builder, hannoy_tpu_torch.build.bulk, "
+        "hannoy_tpu_torch.build.wave_ops, hannoy_tpu_torch.ops.beam, hannoy_tpu_torch.ops.beam_cuda, "
+        "hannoy_tpu_torch.models.flat, hannoy_tpu_torch.utils.tracing"
     )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=300)
 
