@@ -8,10 +8,12 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. card: the ``nvidia-smi`` name and power limit, TF32 off;
 2. build: the gather-distance kernel, compiled with nvcc from
-   ``hannoy_tpu_torch/csrc/gather_distances.cu``;
+   ``hannoy_tpu_torch/csrc/gather_distances.cu``, and the store library,
+   compiled with g++ from ``hannoy_tpu_torch/store/native/kvstore.cpp``;
 3. kernel against its plain twin on a random [100000, 768] store, at the
    main path's shapes — build hop [4096, 32], search hop [256, 32], the
-   bulk build's random candidates [8192, 8] — for cosine (atol 1e-5),
+   bulk build's random candidates [8192, 8], the upper-layer rows of
+   ``fill_link_dists`` [4096, 16] — for cosine (atol 1e-5),
    euclidean and manhattan (rtol 1e-5). Each time is one pair of CUDA
    events around many back-to-back launches, over the count, with the
    candidate rows rotating through 8 index sets so that they come from
@@ -27,7 +29,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    path; then the same checks, plus the peak device memory. It fails if
    the bulk path did not run. Then the same build twice more: once with
    every span fenced by ``torch.cuda.synchronize()`` for the time of each
-   span, once under ``torch.profiler`` for the device's idle share.
+   span, once under ``torch.profiler`` for the device's idle share;
+6. the API path on the same data, in a temporary directory, through
+   ``Database(path, Metric.COSINE)`` (device ``"cuda"``, the native store,
+   ``map_size`` 4 GiB): ``writer.add_items`` → ``builder(seed=42).build()``
+   (must take the bulk path) → ``commit_rw_txn`` → ``Reader.by_vecs`` of
+   the 256 queries at ef 100 → ``close`` → a new ``Database`` and Reader
+   (100,000 items, the same answers item for item, recall@10 >= 0.93
+   against ``flat_topk``, ``assert_validity``) → append 2,000 items from
+   the same centres → ``build()`` (incremental, through ``HostGraph.load``
+   and ``fill_link_dists``) → commit → a new Reader (102,000 items, each
+   appended vector finds itself first in >= 0.99 of rows at ef 100).
+   Every span of this phase is fenced, and each carries the kernel
+   launches made inside it. ``Reader.by_vecs`` is timed beside
+   ``hnsw_search`` on the Reader's own device graph: the gap is the API's
+   host cost.
 
 The build seconds of phases 4 and 5 are the wall time of an unfenced
 ``build_graph``, ended by one ``torch.cuda.synchronize()``. The kernel's
@@ -36,8 +52,9 @@ and before the search and read just after each; both must be > 0.
 
 The last three lines are the card line, a JSON object describing the
 kernel, and ``{"ok": true, "device": {...}}``. Its headline time is the
-phase-3 case (cosine) of the shape the default build and search launch
-most. It needs no network and imports nothing of JAX.
+phase-3 case (cosine) of the shape the default build, its search and the
+API path launch most; its ``launches`` are those of phases 5 and 6, each
+counted from 0. It needs no network and imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -46,6 +63,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -56,8 +74,14 @@ N, DIM, N_QUERIES, K = 100_000, 768, 256, 10
 M, M0, EFC, WAVE = 16, 32, 48, 4096
 EF_SWEEP = (50, 100)
 RECALL_BAR = 0.93
-#: build hop, search hop, the bulk build's random-candidate step
-KERNEL_SHAPES = ((4096, 32), (256, 32), (8192, 8))
+#: build hop, search hop, the bulk build's random-candidate step, the
+#: upper-layer rows of fill_link_dists
+KERNEL_SHAPES = ((4096, 32), (256, 32), (8192, 8), (4096, 16))
+#: phase 6: items appended after the reopen, the store's size limit, and
+#: the least share of appended vectors that must find themselves first
+N_APPEND = 2000
+API_MAP_SIZE = 4 * 2**30
+SELF_HIT_BAR = 0.99
 #: index sets the timed launches rotate through (keeps rows out of L2)
 INDEX_SETS = 8
 TIMED_PAIRS = 5
@@ -189,6 +213,15 @@ def bench_data(rng: np.random.Generator) -> tuple[np.ndarray, np.ndarray]:
     q_assign = rng.integers(0, n_clusters, size=N_QUERIES)
     queries = (centers[q_assign] + rng.standard_normal((N_QUERIES, DIM))).astype(np.float32)
     return data, queries
+
+
+def bench_append(n: int) -> np.ndarray:
+    """``n`` more items around ``bench_data``'s centres (seed 42 draws the
+    centres first; the items come from seed 43)."""
+    n_clusters = max(32, N // 256)
+    centers = np.random.default_rng(42).standard_normal((n_clusters, DIM)).astype(np.float32) * 4.0
+    rng = np.random.default_rng(43)
+    return (centers[rng.integers(0, n_clusters, size=n)] + rng.standard_normal((n, DIM))).astype(np.float32)
 
 
 def stage(data):
@@ -336,6 +369,179 @@ def drive(device, data, queries, label: str, **opts) -> dict:
     }
 
 
+def _print_spans(label: str, spans, skip=("insert_wave",)) -> dict:
+    """Print the fenced spans of one API step (summed by name, with the
+    kernel launches made inside each) → {name: {count, ms, launches}}."""
+    table: dict[str, list] = {}
+    for s in spans:
+        row = table.setdefault(s.name, [0, 0.0, 0])
+        row[0] += 1
+        row[1] += s.ms
+        row[2] += s.probed or 0
+    for name, (count, ms, launches) in table.items():
+        if name not in skip:
+            print(f"[{label}]   span {name}: {count} x, {ms:.2f} ms, kernel launches {launches}", flush=True)
+    return {k: {"count": c, "ms": ms, "launches": n} for k, (c, ms, n) in table.items()}
+
+
+def api_path(device, data, queries, card: str) -> dict:
+    """Phase 6: add → build → commit → search → close → reopen → search →
+    append → build → commit → search, through Database / Writer / Reader.
+    Every span is fenced; nothing is caught."""
+    import torch
+
+    from hannoy_tpu_torch import Database, Metric, default_ef_upper, flat_topk, hnsw_search
+    from hannoy_tpu_torch.ops import beam_cuda, distances
+    from hannoy_tpu_torch.utils import tracing
+
+    label = "phase 6: API path"
+    kernel = beam_cuda.KERNEL
+    ef = EF_SWEEP[-1]
+
+    def recorded():
+        return tracing.record(fence=lambda: _sync(device), probe=lambda: kernel.launches)
+
+    def timed(what: str, fn):
+        _sync(device)
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(device)
+        dt = time.perf_counter() - t0
+        print(f"[{label}] {what}: {dt:.3f} s ({card})", flush=True)
+        return out, dt
+
+    out: dict = {"seconds": {}, "spans": {}, "launches_by_shape": {}}
+    kernel.reset_counts()
+    with tempfile.TemporaryDirectory() as path:
+        # ---- step 1: add → build (bulk) → commit → search ----
+        db = Database(path, Metric.COSINE, map_size=API_MAP_SIZE)
+        if db.device.type != device.type:
+            raise AssertionError(f"[{label}] the Database's default device is {db.device}, not {device}")
+        writer = db.writer(dimensions=DIM, m=M, ef=EFC)
+        _, out["seconds"]["add_items"] = timed(f"add_items of {N} x {DIM}", lambda: writer.add_items(range(N), data))
+        with recorded() as spans:
+            stats, out["seconds"]["build"] = timed("build (fenced spans)", lambda: writer.builder(seed=42).build())
+        out["spans"]["build"] = _print_spans(label, spans)
+        if "bulk_build" not in out["spans"]["build"]:
+            raise AssertionError(f"[{label}] the Writer's default build did not take the bulk path")
+        print(f"[{label}] build touched {len(stats.touched)} rows, kernel launches {kernel.launches} "
+              f"{_shapes(kernel.by_shape)}", flush=True)
+        _, out["seconds"]["commit"] = timed("commit_rw_txn", db.commit_rw_txn)
+        with recorded() as spans:
+            reader, out["seconds"]["reader_cached"] = timed("Reader.open (graph cached by the build)", db.reader)
+        out["spans"]["reader_cached"] = _print_spans(label, spans)
+        before, _ = timed(f"Reader.by_vecs, first call, ef={ef}", lambda: reader.by_vecs(queries, n=K, ef_search=ef))
+        out["launches_by_shape"]["build_and_search"] = _shapes(kernel.by_shape)
+        step1 = kernel.launches
+        db.close()
+
+        # ---- step 2: reopen → the same answers, recall, validity ----
+        kernel.reset_counts()
+        db, out["seconds"]["reopen"] = timed("Database reopen (native store)", lambda: Database(path, Metric.COSINE, map_size=API_MAP_SIZE))
+        with recorded() as spans:
+            reader, out["seconds"]["reader_open"] = timed("Reader.open (load from the store + upload)", db.reader)
+        out["spans"]["reader_open"] = _print_spans(label, spans)
+        if reader.n_items() != N:
+            raise AssertionError(f"[{label}] reopened index has {reader.n_items()} items, expected {N}")
+        after = reader.by_vecs(queries, n=K, ef_search=ef)
+        if after != before:
+            diff = sum(a != b for a, b in zip(after, before))
+            raise AssertionError(f"[{label}] {diff} of {N_QUERIES} answers changed across close and reopen")
+        print(f"[{label}] the {N_QUERIES} answers are the same before the close and after the reopen", flush=True)
+        metric = distances.COSINE
+        q, qn = reader._prep_queries(queries)
+        exact_d, _ = flat_topk(metric.name, q, qn, reader._dev.vectors, reader._dev.norms, reader._dev.valid, K)
+        thresh = (exact_d[:, K - 1] + 1e-6).cpu().numpy()
+        if not all(len(row) == K for row in after):
+            raise AssertionError(f"[{label}] a query came back with fewer than {K} results")
+        recall = float(np.mean([[d <= thresh[b] for _, d in row] for b, row in enumerate(after)]))
+        print(f"[{label}] recall@10 at ef={ef} through Reader.by_vecs: {recall:.4f}", flush=True)
+        if recall < RECALL_BAR:
+            raise AssertionError(f"[{label}] recall@10 {recall} below {RECALL_BAR}")
+        _, out["seconds"]["assert_validity"] = timed(f"Reader.assert_validity on the {N}-item index", reader.assert_validity)
+
+        # the API's host cost: by_vecs against the engine on the same graph,
+        # in turns after a warm-up of each, medians of the single calls.
+        # A by_vecs call's own "reader_search" span (hnsw_search and the one
+        # transfer of its result) says how much of it is the search: the
+        # rest is the API's host work, whatever the card did between turns.
+        efu = default_ef_upper(N, ef)
+
+        def one(fn) -> float:
+            _sync(device)
+            t0 = time.perf_counter()
+            fn()
+            _sync(device)
+            return time.perf_counter() - t0
+
+        def engine():
+            hnsw_search(reader._dev, q, qn, ef, max_iters=2 * ef + 16, ef_upper=efu)
+
+        for _ in range(2):
+            reader.by_vecs(queries, n=K, ef_search=ef)
+            engine()
+        reps = 7
+        times: dict[str, list] = {"by_vecs": [], "of which reader_search": [], "hnsw_search": []}
+        for _ in range(reps):
+            with tracing.record() as spans:
+                times["by_vecs"].append(one(lambda: reader.by_vecs(queries, n=K, ef_search=ef)))
+            times["of which reader_search"].append(sum(s.ms for s in spans if s.name == "reader_search") / 1e3)
+            times["hnsw_search"].append(one(engine))
+        med = {name: float(np.median(t)) for name, t in times.items()}
+        out["qps"] = {name: N_QUERIES / med[name] for name in ("by_vecs", "hnsw_search")}
+        out["api_host_ms_per_batch"] = (med["by_vecs"] - med["of which reader_search"]) * 1e3
+        print(f"[{label}] ef={ef}, medians of {reps} calls in turns: Reader.by_vecs {out['qps']['by_vecs']:.1f} QPS "
+              f"({med['by_vecs'] * 1e3:.3f} ms per {N_QUERIES}-query batch, of which its search and transfer "
+              f"{med['of which reader_search'] * 1e3:.3f} ms: the API's host cost is "
+              f"{out['api_host_ms_per_batch']:.3f} ms per batch); hnsw_search alone on the same graph "
+              f"{out['qps']['hnsw_search']:.1f} QPS ({med['hnsw_search'] * 1e3:.3f} ms) ({card})", flush=True)
+        out["launches_by_shape"]["reopen_and_search"] = _shapes(kernel.by_shape)
+        step2 = kernel.launches
+
+        # ---- step 3: append after the reopen → incremental build ----
+        kernel.reset_counts()
+        extra = bench_append(N_APPEND)
+        writer = db.writer(dimensions=DIM, m=M, ef=EFC)
+        _, out["seconds"]["append_add_items"] = timed(f"add_items of {N_APPEND} more", lambda: writer.add_items(range(N, N + N_APPEND), extra))
+        with recorded() as spans:
+            stats, out["seconds"]["append_build"] = timed("append build (fenced spans)", lambda: writer.builder(seed=42).build())
+        out["spans"]["append_build"] = sp = _print_spans(label, spans)
+        for need in ("load_graph", "fill_link_dists"):
+            if need not in sp:
+                raise AssertionError(f"[{label}] the append did not go through {need}")
+        if sp["fill_link_dists"]["launches"] == 0:
+            raise AssertionError(f"[{label}] fill_link_dists launched no kernel")
+        print(f"[{label}] append touched {len(stats.touched)} rows in {stats.waves} waves; "
+              f"fill_link_dists launched the kernel {sp['fill_link_dists']['launches']} times", flush=True)
+        _, out["seconds"]["append_commit"] = timed("commit_rw_txn", db.commit_rw_txn)
+        reader = db.reader()
+        if reader.n_items() != N + N_APPEND:
+            raise AssertionError(f"[{label}] index has {reader.n_items()} items after the append")
+        # each appended vector as a query; the ones that miss themselves
+        # are those whose insertion found few, far candidates (their
+        # layer-0 out-degree says so)
+        g = reader._graph
+        firsts = reader.by_vecs(extra, n=1, ef_search=ef)
+        found = np.asarray([bool(row) and row[0][0] == N + i for i, row in enumerate(firsts)])
+        self_hit = float(found.mean())
+        outdeg = (g.links0[[g.id_to_slot[N + i] for i in range(N_APPEND)]] >= 0).sum(1)
+        print(f"[{label}] {N_APPEND} appended items find themselves first in {self_hit:.4f} of rows at ef={ef} "
+              f"(index now {reader.n_items()} items); layer-0 out-degree: median {int(np.median(outdeg))} of those "
+              f"found, {sorted(outdeg[~found].tolist())} of the {int((~found).sum())} missed", flush=True)
+        if self_hit < SELF_HIT_BAR:
+            raise AssertionError(f"[{label}] self-hit {self_hit} below {SELF_HIT_BAR}")
+        g.check_validity()
+        out["launches_by_shape"]["append"] = _shapes(kernel.by_shape)
+        step3 = kernel.launches
+        db.close()
+    out.update(recall_at_10=recall, self_hit=self_hit, launches=step1 + step2 + step3,
+               launches_by_step={"build_and_search": step1, "reopen_and_search": step2, "append": step3})
+    print(f"[{label}] kernel launches by [B, K]: {json.dumps(out['launches_by_shape'])}", flush=True)
+    if min(step1, step2, step3) == 0:
+        raise AssertionError(f"[{label}] a step launched no kernel: {out['launches_by_step']}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -361,6 +567,11 @@ def main() -> int:
     for line in beam_cuda.KERNEL.build_log.splitlines():
         if "registers" in line or "spill" in line:
             print(f"  nvcc: {line.strip()}", flush=True)
+    from hannoy_tpu_torch.store import native_env
+
+    t0 = time.perf_counter()
+    native_env.load_library()
+    print(f"store library built: {os.path.relpath(native_env.library_path())} in {time.perf_counter() - t0:.2f} s", flush=True)
 
     cases = check_kernel(device)  # phase 3
     torch.cuda.empty_cache()
@@ -372,6 +583,8 @@ def main() -> int:
         raise AssertionError("phase 5: the default build did not take the bulk path")
     default["fenced"] = fenced_spans(device, data, "phase 5: default build")
     default["profiled"] = profiled_build(device, data, "phase 5: default build")
+    torch.cuda.empty_cache()
+    api = api_path(device, data, queries, card)  # phase 6
 
     # each timed case beside its launches on both paths; the headline is
     # the case the default build and search launch most
@@ -379,15 +592,18 @@ def main() -> int:
         key = f"{c['shape'][0]}x{c['shape'][1]}"
         for path, res in (("wave_build", waves), ("default_build", default)):
             c[f"launches_{path}"] = res["build_launches_by_shape"].get(key, 0) + res["search_launches_by_shape"].get(key, 0)
-    head = max((c for c in cases if c["metric"] == "cosine"), key=lambda c: c["launches_default_build"])
-    print(f"headline case: cosine {head['shape']}, {head['launches_default_build']} of "
-          f"{default['build_launches'] + default['search_launches']} launches of the default build and search", flush=True)
+        c["launches_api_path"] = sum(step.get(key, 0) for step in api["launches_by_shape"].values())
+    main_launches = default["build_launches"] + default["search_launches"] + api["launches"]
+    head = max((c for c in cases if c["metric"] == "cosine"),
+               key=lambda c: c["launches_default_build"] + c["launches_api_path"])
+    print(f"headline case: cosine {head['shape']}, {head['launches_default_build'] + head['launches_api_path']} of "
+          f"{main_launches} launches of the default build, its search and the API path", flush=True)
     kernels = {"kernels": [{
         "name": "gather_distances",
         "route": "cuda",
         "source": "hannoy_tpu_torch/csrc/gather_distances.cu",
         "replaces": "hannoy_tpu/ops/beam_pallas.py:108",
-        "launches": default["build_launches"] + default["search_launches"],
+        "launches": main_launches,
         "shape": head["shape"],
         "max_abs_err": head["max_abs_err"],
         "ms": head["ms"],
@@ -396,7 +612,7 @@ def main() -> int:
         "bound_by": head["bound_by"],
         "library_ms": None,  # no single PyTorch call gathers and reduces
         "cases": cases,
-        "paths": {"wave_build": waves, "default_build": default},
+        "paths": {"wave_build": waves, "default_build": default, "api_path": api},
     }]}
     print(card_line())
     print(json.dumps(kernels))

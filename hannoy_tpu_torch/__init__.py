@@ -2,31 +2,43 @@
 
 Counterpart of ``hannoy_tpu`` (the JAX reference package), written in
 PyTorch with a hand-written CUDA kernel for the per-hop gather → distance.
-It imports neither JAX nor ``hannoy_tpu``; the host modules it needs are
-its own copies.
+It imports neither JAX nor ``hannoy_tpu``; the host modules it needs
+(the store, the id sets, the schema) are its own copies, and the on-disk
+format is shared: either package opens a directory the other wrote.
 
-The ported slice is the engine under the JAX package's main path: stage
-items in a ``HostGraph`` → ``build_graph`` (insertion waves, or for
-fresh cosine/euclidean builds of >= 8192 items the bulk cluster-blocked
-path, as in the JAX package) → ``to_device`` → ``hnsw_search``, with
-``flat_topk`` as the exact oracle.
-The device is always explicit; nothing picks one by itself. The
-``Database``/``Writer``/``Reader`` API is not ported yet (ROADMAP.md).
+The front door is the JAX package's: ``Database(path, Metric.COSINE,
+device="cuda")`` → ``db.writer(dimensions)`` → ``add_items`` →
+``builder().build()`` → ``commit_rw_txn()`` → ``db.reader().by_vecs(...)``.
+Under it runs the engine: stage items in a ``HostGraph`` →
+``build_graph`` (insertion waves, or for fresh cosine/euclidean builds of
+>= 8192 items the bulk cluster-blocked path, as in the JAX package) →
+``to_device`` → ``hnsw_search``, with ``flat_topk`` as the exact oracle.
+The device is always explicit — a keyword of ``Database``, an argument of
+the engine's functions; nothing picks one by itself. What of the API is
+not ported yet is listed in ROADMAP.md.
 """
 
 from __future__ import annotations
 
 from . import errors
+from .api import Database, Metric, Reader, Writer
 from .build.builder import BuildOptions, build_graph
 from .models.flat import flat_topk
 from .models.hnsw import DeviceGraph, HostGraph, from_device, slot_capacity, to_device
 from .ops.beam import BeamResult, default_ef_upper, hnsw_search
-from .ops.distances import COSINE, EUCLIDEAN, MANHATTAN, Metric, by_name
+from .ops.distances import COSINE, EUCLIDEAN, MANHATTAN, by_name
+from .version import CURRENT_VERSION, Version
 
 __version__ = "0.1.0"
 
 __all__ = [
     "errors",
+    "Database",
+    "Writer",
+    "Reader",
+    "Metric",
+    "Version",
+    "CURRENT_VERSION",
     "BuildOptions",
     "build_graph",
     "flat_topk",
@@ -41,6 +53,5 @@ __all__ = [
     "COSINE",
     "EUCLIDEAN",
     "MANHATTAN",
-    "Metric",
     "by_name",
 ]

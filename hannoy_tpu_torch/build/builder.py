@@ -467,7 +467,13 @@ def _insert_wave(
     # the greedy descent only seeds beam searches
     needs_beam = not use_flat and any(_fm(level) is None for level in range(top, -1, -1))
     if dev.max_level > lv and needs_beam:
-        seeds = beam.descend_for_slots(dev, wave_t, dev.max_level, lv + 1, node_ok=node_ok)
+        # A level-0 item's layer-0 beam is seeded as a search's is: on a
+        # large clustered index the greedy walk ends in another cluster's
+        # basin for some items, which then link only to far candidates and
+        # cannot be found again. (Items of higher levels run an
+        # ef_construction-wide beam at their own top layer already.)
+        ef_upper = beam.default_ef_upper(n_active, opts.ef_construction) if lv == 0 else 1
+        seeds = beam.descend_for_slots(dev, wave_t, dev.max_level, lv + 1, node_ok=node_ok, ef_upper=ef_upper)
     else:
         seeds = dev.entry_slots[None, :].expand(wave.shape[0], -1)
     # Tail termination only on wide waves, sized from the REAL item count

@@ -14,14 +14,16 @@ masked index assignments on int64 indices; their destinations never
 repeat except where noted.
 
 ``reverse_merge_edges_streamed`` is the bulk connector's global variant
-of the reverse merge. Not ported yet (ROADMAP.md queue 1): slack rows,
-prototype seeding, deletion repair, link-distance refill.
+of the reverse merge. ``fill_link_dists`` recomputes the link distances
+of a graph loaded from the store. Not ported yet (ROADMAP.md queue 1):
+slack rows, prototype seeding, deletion repair.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..models.hnsw import DeviceGraph
@@ -472,6 +474,31 @@ def force_inbound_for(
     return _ensure_inbound(
         g, stranded, sel_ids, sel_d, dirty, counters, write_cap=write_cap, indeg=indeg
     )
+
+
+def fill_link_dists(g: DeviceGraph, host, block: int = 4096) -> DeviceGraph:
+    """Recompute per-link distances for a graph loaded from the store.
+
+    Persisted rows carry ids only (the reference stores RoaringBitmaps,
+    node.rs:133-174); builders need the ScoredLink distances back. Per
+    level and per block of ``block`` owners: one gather-distance call
+    owner → its link row (``[block, M0 or M]`` candidates), +inf where the
+    id is ``NO_ID``, and the rows written back distance-sorted (builders
+    rely on ascending rows). Updates ``g`` in place; ``host`` is the
+    ``HostGraph`` ``g`` was uploaded from.
+    """
+    for level in range(host.max_level + 1):
+        owners = np.nonzero(host.levels >= 0 if level == 0 else host.slot_rows[level - 1] >= 0)[0]
+        for start in range(0, len(owners), block):
+            chunk = np.full(block, -1, dtype=np.int32)
+            sel = owners[start : start + block]
+            chunk[: len(sel)] = sel
+            slots = torch.from_numpy(chunk).to(g.device)
+            ids = beam.links_at(g, level, slots)
+            d = beam.candidate_distances(g, g.vectors[_ix(slots)], g.norms[_ix(slots)], ids)
+            d, ids = topk.sort_by_dist(torch.where(ids != NO_ID, d, INF), ids)
+            _set_level_rows(g, level, slots, ids, d)
+    return g
 
 
 def activate_wave(g: DeviceGraph, wave_slots: torch.Tensor) -> DeviceGraph:

@@ -13,19 +13,32 @@ Counterpart of ``hannoy_tpu/models/hnsw.py``:
 Link distances are cached beside ids (``dists0``/``upper_dists``) during
 builds. Unlike the JAX package, ``from_device`` keeps them in f32.
 
-Not ported yet (ROADMAP.md queue 1): ``HostGraph.load``/``flush_links``
-(the store), slot release and ``permute*``, and the bf16/int8 storage
-tiers.
+``HostGraph.load`` / ``flush_links`` read and write the store's links
+records (ids only; ``wave_ops.fill_link_dists`` restores the distances on
+the device). Every ``to_device`` uploads the vectors anew: the JAX
+package's device vector cache is not ported, nor are ``permute*`` and the
+bf16/int8 storage tiers (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import struct
 
 import numpy as np
 import torch
 
 from ..ops import codecs, distances
+from ..store.env import Database, RoTxn, RwTxn
+from ..store.schema import (
+    Key,
+    NodeMode,
+    Prefix,
+    decode_item,
+    decode_links,
+    keys_bytes,
+    links_payload,
+)
 
 INVALID_ID = np.uint32(0xFFFFFFFF)
 
@@ -155,6 +168,21 @@ class HostGraph:
         self.id_to_slot[item_id] = slot
         return slot
 
+    def release_slot(self, slot: int) -> None:
+        item_id = int(self.ids[slot])
+        self.id_to_slot.pop(item_id, None)
+        self.ids[slot] = INVALID_ID
+        self.levels[slot] = -1
+        self.links0[slot] = -1
+        self.dists0[slot] = np.inf
+        for l in range(len(self.slot_rows)):
+            row = self.slot_rows[l][slot]
+            if row >= 0:
+                self.upper_links[l][row] = -1
+                self.upper_dists[l][row] = np.inf
+                self.slot_rows[l][slot] = -1
+        self.free_slots.append(slot)
+
     def ensure_layers(self, max_level: int) -> None:
         """Make sure compact tables exist for layers 1..max_level."""
         while len(self.upper_links) < max_level:
@@ -209,6 +237,176 @@ class HostGraph:
             self.upper_dists[level - 1][row] = np.inf
             self.upper_links[level - 1][row, :k] = link_slots[:k]
             self.upper_dists[level - 1][row, :k] = link_dists[:k]
+
+    # -- store I/O ---------------------------------------------------------
+    @classmethod
+    def load(
+        cls,
+        db: Database,
+        txn: RoTxn,
+        index: int,
+        metric: distances.Metric,
+        metadata,
+    ) -> "HostGraph":
+        """Reconstruct the graph mirror from the store (the ``Reader.open``
+        and incremental-``Writer`` load path).
+
+        Persisted link rows carry only neighbor ids (like the reference's
+        RoaringBitmaps); they come back with NaN distances, "unknown", and
+        ``wave_ops.fill_link_dists`` recomputes them on the device.
+        """
+        n = len(metadata.items)
+        g = cls.empty(
+            metric,
+            metadata.dimensions,
+            metadata.m,
+            metadata.m0,
+            capacity=slot_capacity(max(n, 1)),
+        )
+        if hasattr(db, "bulk_rows") and n and not getattr(txn, "overlay", None):
+            # native store, clean snapshot: one C call stages every item's
+            # header+vector (value layout: tag u8 ∥ hlen u16 ∥ f32 norm ∥
+            # vector bytes). Dirty write txns fall through to the row loop —
+            # bulk_rows reads the committed generation only.
+            codec = metric.codec
+            vec_bytes = (
+                metadata.dimensions * 4
+                if codec == codecs.F32
+                else codecs.padded_dim(metadata.dimensions, codec) // 8
+            )
+            keys, rows = db.bulk_rows(
+                txn, Prefix.item(index), skip=3, row_bytes=4 + vec_bytes, cap=n
+            )
+            items = (keys & 0xFFFFFFFF00) >> 8  # u64 key → item field
+            for item in items:
+                g.alloc_slot(int(item))
+            g.norms[: len(keys)] = rows[:, :4].copy().view("<f4")[:, 0]
+            g.vectors[: len(keys)] = rows[:, 4:].copy().view("<f4" if codec == codecs.F32 else "<u4")
+            g.levels[: len(keys)] = 0
+        else:
+            for key, val in db.prefix_iter(txn, Prefix.item(index)):
+                item = Key.from_bytes(key).item
+                header, vecb = decode_item(val)
+                s = g.alloc_slot(item)
+                g.vectors[s] = codecs.vector_from_bytes(vecb, metric.codec)
+                g.norms[s] = struct.unpack("<f", header)[0]
+                g.levels[s] = 0
+        g.max_level = metadata.max_level
+        g.ensure_layers(g.max_level)
+        # Two passes over links rows. A links row whose owner has no item
+        # record belongs to a deleted-but-not-yet-rebuilt item (del_item
+        # removes the record immediately; its links persist until the next
+        # build — reference writer.rs:577-580). Such owners get *ghost*
+        # slots (zero vector) so survivor rows keep their edges intact and
+        # a builder's deletion repair sees the full graph.
+        raw_rows: list[tuple[int, int, np.ndarray]] = []
+        for key, val in db.prefix_iter(txn, Prefix.links(index)):
+            k = Key.from_bytes(key)
+            ids = decode_links(val).to_array()
+            raw_rows.append((k.item, k.layer, ids))
+            if k.item not in g.id_to_slot:
+                s = g.alloc_slot(k.item)
+                g.levels[s] = 0  # raised as its rows are applied below
+        # Vectorized id → slot mapping + batched layer-0 fill: one sorted
+        # table + one np.searchsorted over every link of the layer instead
+        # of a Python dict probe per link. Upper layers are ~1/M of the
+        # rows and keep the simple per-row path.
+        known_ids = np.fromiter(g.id_to_slot.keys(), dtype=np.int64, count=len(g.id_to_slot))
+        known_slots = np.fromiter(g.id_to_slot.values(), dtype=np.int32, count=len(g.id_to_slot))
+        order = np.argsort(known_ids)
+        known_ids, known_slots = known_ids[order], known_slots[order]
+
+        def map_ids(ids64: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+            """→ (slots for the hits, hit mask) — missing ids dropped."""
+            pos = np.searchsorted(known_ids, ids64)
+            pos_ok = pos < len(known_ids)
+            hit = np.zeros(len(ids64), dtype=bool)
+            hit[pos_ok] = known_ids[pos[pos_ok]] == ids64[pos_ok]
+            return known_slots[pos[hit]], hit
+
+        l0 = [(item, ids) for item, layer, ids in raw_rows if layer == 0]
+        if l0:
+            owners = np.asarray([g.id_to_slot[item] for item, _ in l0], dtype=np.int64)
+            lens = np.asarray([len(ids) for _, ids in l0], dtype=np.int64)
+            flat = (
+                np.concatenate([ids for _, ids in l0]).astype(np.int64)
+                if lens.sum()
+                else np.empty(0, dtype=np.int64)
+            )
+            slots_flat, hit = map_ids(flat)
+            row_of = np.repeat(np.arange(len(l0)), lens)[hit]
+            # rank within each row after dropping misses
+            rank = np.zeros(len(row_of), dtype=np.int64)
+            if len(row_of):
+                first = np.concatenate([[True], row_of[1:] != row_of[:-1]])
+                idx = np.arange(len(row_of))
+                starts = np.maximum.accumulate(np.where(first, idx, 0))
+                rank = idx - starts
+            keep = rank < g.m0
+            g.links0[owners, :] = -1
+            g.dists0[owners, :] = np.inf
+            g.links0[owners[row_of[keep]], rank[keep]] = slots_flat[keep]
+            g.dists0[owners[row_of[keep]], rank[keep]] = np.nan
+        for item, layer, ids in raw_rows:
+            slot = g.id_to_slot[item]
+            g.levels[slot] = max(g.levels[slot], layer)
+            if layer == 0:
+                continue  # bulk-filled above
+            link_slots, _ = map_ids(ids.astype(np.int64))
+            # NaN marks "distance unknown, recompute on device"
+            g.set_links(
+                slot, layer, link_slots, np.full(len(link_slots), np.nan, dtype=np.float32)
+            )
+        g.entry_slots = [
+            g.id_to_slot[e] for e in metadata.entry_points if e in g.id_to_slot
+        ]
+        return g
+
+    def flush_links(self, db: Database, wtxn: RwTxn, index: int, slots=None) -> None:
+        """Persist link rows to the store (reference's single-threaded
+        flush, hnsw.rs:192-213: layers → LMDB puts).
+
+        ``slots``: rows to flush — builds pass the touched set
+        (``BuildStats.touched``) so a small incremental build into a large
+        index issues puts for the rows it changed only (the reference
+        flushes only nodes in its in-progress maps). ``None`` flushes every
+        valid slot.
+
+        Writes one links row per (item, layer<=level) — including empty
+        rows, matching the reference where every inserted node gets a
+        ``NodeState`` even if no links were added (hnsw.rs:419-424).
+
+        The rows are assembled with the vectorized schema codecs
+        (``keys_bytes``/``links_payload``, byte-identical to the
+        per-record codecs) and written with one ``put_many_raw`` per level
+        batch, which both store backends provide."""
+        if slots is None:
+            slots = np.nonzero(self.valid_mask())[0]
+        slots = np.asarray(slots, dtype=np.int64)
+        slots = slots[self.levels[slots] >= 0]  # released since touched
+        if not len(slots):
+            return
+        lvls = self.levels[slots]
+        for level in range(int(lvls.max()) + 1):
+            sl = slots[lvls >= level]
+            if level == 0:
+                table = self.links0[sl]
+            else:
+                rows = self.slot_rows[level - 1][sl]
+                table = self.upper_links[level - 1][np.maximum(rows, 0)]
+                table = np.where((rows >= 0)[:, None], table, -1)
+            link_ids = np.where(
+                table >= 0,
+                self.ids[np.maximum(table, 0)].astype(np.int64),
+                np.int64(-1),
+            )
+            for start in range(0, len(sl), 262144):
+                part = slice(start, start + 262144)
+                keys = keys_bytes(
+                    index, NodeMode.LINKS, self.ids[sl[part]].astype(np.uint32), layer=level
+                )
+                vbuf, offs = links_payload(link_ids[part])
+                db.put_many_raw(wtxn, keys.tobytes(), vbuf, offs)
 
     # -- invariants --------------------------------------------------------
     def check_validity(self) -> None:

@@ -173,13 +173,37 @@ def descend_for_slots(
     to_level: int,
     max_steps_per_level: int = 128,
     node_ok: Optional[torch.Tensor] = None,
+    ef_upper: int = 1,
 ) -> torch.Tensor:
-    """Greedy descent for a wave of *stored* items: gathers their vectors
-    and walks layers ``from_level..to_level`` → seed slots [W, 1]."""
+    """Descent for a wave of *stored* items: gathers their vectors and
+    walks layers ``from_level..to_level`` greedily → seed slots [W, 1].
+    With ``ef_upper > 1`` the last layer is walked by an ``ef_upper``-wide
+    beam instead, as ``_descend_start`` does for a search → [W, ef_upper]."""
     q = g.vectors[_ix(wave_slots)]
     qn = g.norms[_ix(wave_slots)]
-    ep = greedy_descend(g, q, qn, from_level, to_level, max_steps_per_level, node_ok)
-    return ep[:, None]
+    return _descend(g, q, qn, from_level, to_level, ef_upper, max_steps_per_level, node_ok)
+
+
+def _descend(
+    g: DeviceGraph,
+    q: torch.Tensor,
+    qn: torch.Tensor,
+    from_level: int,
+    to_level: int,
+    ef_upper: int = 1,
+    max_steps_per_level: int = 128,
+    node_ok: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Seed slots for the layer below ``to_level`` → [B, S]: the greedy
+    walk through ``from_level..to_level`` (``ef_upper == 1``), or greedy
+    down to ``to_level + 1`` and an ``ef_upper``-wide beam at ``to_level``."""
+    if ef_upper <= 1:
+        return greedy_descend(g, q, qn, from_level, to_level, max_steps_per_level, node_ok)[:, None]
+    if from_level > to_level:
+        start = greedy_descend(g, q, qn, from_level, to_level + 1, max_steps_per_level, node_ok)[:, None]
+    else:
+        start = g.entry_slots[None, :].expand(q.shape[0], -1)
+    return beam_search(g, q, qn, start, ef_upper, node_ok=node_ok, level=to_level).slots
 
 
 # --------------------------------------------------------------------------
@@ -325,16 +349,9 @@ def _descend_start(g: DeviceGraph, q: torch.Tensor, qn: torch.Tensor, ef_upper: 
     """Layer-0 seed slots → [B, S]: the greedy descent through layers
     L..1 (``ef_upper == 1``), or greedy through L..2 then an
     ``ef_upper``-wide beam at layer 1."""
-    every_ep = g.entry_slots[None, :].expand(q.shape[0], -1)
     if g.max_level < 1:
-        return every_ep
-    if ef_upper <= 1:
-        return greedy_descend(g, q, qn, g.max_level, 1)[:, None]
-    if g.max_level >= 2:
-        start = greedy_descend(g, q, qn, g.max_level, 2)[:, None]
-    else:
-        start = every_ep
-    return beam_search(g, q, qn, start, ef_upper, level=1).slots
+        return g.entry_slots[None, :].expand(q.shape[0], -1)
+    return _descend(g, q, qn, g.max_level, 1, ef_upper)
 
 
 def hnsw_search(

@@ -12,6 +12,9 @@ enable with ``logging.getLogger("hannoy_tpu_torch").setLevel(logging.DEBUG)``
 queues device work and returns, so a span's wall time says little about
 the device unless both of its ends wait for the device: ``record(fence=
 torch.cuda.synchronize)`` runs the fence at each span's start and end.
+``record(probe=...)`` reads a counter at both ends of each span and keeps
+the difference (e.g. a kernel's launch count, to say which span launched
+it).
 """
 
 from __future__ import annotations
@@ -29,11 +32,14 @@ class SpanTime(NamedTuple):
     name: str
     fields: dict
     ms: float
+    #: the recorder's probe at the span's end less at its start
+    probed: Optional[int] = None
 
 
 class _Recorder(NamedTuple):
     spans: list
     fence: Optional[Callable[[], None]]
+    probe: Optional[Callable[[], int]]
 
 
 _RECORDER: contextvars.ContextVar[Optional[_Recorder]] = contextvars.ContextVar(
@@ -42,11 +48,12 @@ _RECORDER: contextvars.ContextVar[Optional[_Recorder]] = contextvars.ContextVar(
 
 
 @contextlib.contextmanager
-def record(fence: Optional[Callable[[], None]] = None):
+def record(fence: Optional[Callable[[], None]] = None, probe: Optional[Callable[[], int]] = None):
     """Collect every span closed inside the block → the list of
     ``SpanTime`` it yields, in closing order. ``fence`` runs at each
-    span's start and end (nothing is fenced outside a ``record`` block)."""
-    rec = _Recorder([], fence)
+    span's start and end (nothing is fenced outside a ``record`` block);
+    ``probe`` is read at both and its difference kept in ``probed``."""
+    rec = _Recorder([], fence, probe)
     token = _RECORDER.set(rec)
     try:
         yield rec.spans
@@ -60,6 +67,7 @@ def span(name: str, **fields):
     rec = _RECORDER.get()
     if rec is not None and rec.fence is not None:
         rec.fence()
+    p0 = rec.probe() if rec is not None and rec.probe is not None else None
     t0 = time.perf_counter()
     try:
         yield
@@ -68,7 +76,7 @@ def span(name: str, **fields):
             rec.fence()
         dt = (time.perf_counter() - t0) * 1e3
         if rec is not None:
-            rec.spans.append(SpanTime(name, fields, dt))
+            rec.spans.append(SpanTime(name, fields, dt, None if p0 is None else rec.probe() - p0))
         if logger.isEnabledFor(logging.DEBUG):
             extras = " ".join(f"{k}={v}" for k, v in fields.items())
             logger.debug("%s %s took=%.2fms", name, extras, dt)

@@ -125,6 +125,52 @@ def test_hnsw_search_matches_jax(ref, ef, ef_upper):
         assert int(got.iters) == int(want.iters)
 
 
+@pytest.mark.parametrize("ef_upper", [1, 4])
+def test_insertion_seeds_match_jax_search_descent(ref, ef_upper):
+    """The seeds of a level-0 item's insertion are the seeds a search for
+    its vector starts from: ``descend_for_slots(..., ef_upper)`` on stored
+    items against the JAX package's ``_descend_start`` on their vectors."""
+    _, _, jg = ref
+    tg = hnsw.to_device(hnsw.host_graph_from_arrays(**_host_state(jg)), "cpu")
+    jdev = jax_hnsw.to_device(jg)
+    wave = np.arange(0, N, 11, dtype=np.int32)
+    want = np.asarray(jax_beam._descend_start(jdev, jnp.asarray(jg.vectors[wave]), jnp.asarray(jg.norms[wave]), ef_upper))
+    got = beam.descend_for_slots(tg, torch.from_numpy(wave), jg.max_level, 1, ef_upper=ef_upper).numpy()
+    assert got.shape == (len(wave), ef_upper)
+    share = float((got == want).mean())
+    print(f"insertion seeds ef_upper={ef_upper}: identical slots {share:.4f}")
+    assert share >= 0.99
+
+
+def test_append_seeds_level0_items_with_the_pooled_descent(monkeypatch):
+    """An append to an index wide enough for ``default_ef_upper`` to exceed
+    1 (forced here at a small size) seeds level-0 items with that width and
+    items of higher levels greedily; the graph stays valid and every
+    appended item is found first for its own vector."""
+    data, _ = _data()
+    n_built = N - 200
+    g = _stage(hnsw, data)
+    builder.build_graph(g, np.arange(n_built, dtype=np.int64), np.empty(0, np.int64), _opts(builder), device="cpu")
+    widths = []
+    descend = beam.descend_for_slots
+
+    def spy(dev, wave, from_level, to_level, **kw):
+        seeds = descend(dev, wave, from_level, to_level, **kw)
+        widths.append((to_level, kw.get("ef_upper", 1), seeds.shape[1]))
+        return seeds
+
+    monkeypatch.setattr(beam, "descend_for_slots", spy)
+    monkeypatch.setattr(beam, "default_ef_upper", lambda n, ef: 4)
+    builder.build_graph(g, np.arange(n_built, N, dtype=np.int64), np.empty(0, np.int64), _opts(builder), device="cpu")
+    assert widths and {w for w in widths if w[0] == 1} == {(1, 4, 4)}
+    assert all(w[1:] == (1, 1) for w in widths if w[0] > 1)
+    g.check_validity()
+    q = torch.from_numpy(data[n_built:])
+    qn = torch.from_numpy(distances.np_norms(distances.COSINE, data[n_built:]))
+    res = beam.hnsw_search(hnsw.to_device(g, "cpu", serve_only=True), q, qn, 48)
+    assert np.array_equal(res.slots[:, 0].numpy(), np.arange(n_built, N))
+
+
 @pytest.fixture(scope="module")
 def wave_state(ref):
     """A JAX graph of the first N-128 items, and the next 128 as a wave."""

@@ -1,18 +1,21 @@
-"""The hand-written CUDA gather-distance kernel and the port's build on a
-CUDA device. Marked ``cuda``: without a card every test skips. On a
+"""The hand-written CUDA gather-distance kernel, the port's build and its
+Database / Writer / Reader path on a CUDA device. Marked ``cuda``: without a card every test skips. On a
 machine with one (and without JAX, so without ``tests/conftest.py``):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerances: the kernel sums each row in another order than the twin, so
 cosine agrees to atol 1e-5 and sqL2/L1 to rtol 1e-5; the bulk build's
-block distances agree to atol 1e-5 on unit-scale rows.
+block distances agree to atol 1e-5 on unit-scale rows. The API path on the
+card against the same path on the CPU: 95% of the links records, recall
+within 0.02, and the same answers after a reopen.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from hannoy_tpu_torch import Database, Metric
 from hannoy_tpu_torch.build import builder
 from hannoy_tpu_torch.models import hnsw
 from hannoy_tpu_torch.ops import beam, beam_cuda, distances
@@ -165,3 +168,51 @@ def test_block_distances_on_cuda_match_cpu(cuda, name):
     got = distances.block_distances(metric, q.to(cuda), qn.to(cuda), c.to(cuda), cn.to(cuda))
     assert got.dtype == torch.float32
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5)
+
+
+def test_api_path_on_cuda_matches_cpu(cuda, tmp_path):
+    """add -> build (bulk) -> commit -> close -> reopen -> search -> append
+    -> build at 6000 x 32 through ``Database(device="cuda")`` (the default)
+    against the same calls with ``device="cpu"``."""
+    data, queries = _clustered()
+    extra = data[:200] + 0.05
+    n = len(data)
+    links, answers = {}, {}
+    for name, kw in (("cpu", {"device": "cpu"}), ("cuda", {})):
+        before = beam_cuda.KERNEL.launches
+        db = Database(tmp_path / name, Metric.COSINE, **kw)
+        assert db.device.type == name
+        w = db.writer(32, m=8, ef=32)
+        w.add_items(range(n), data)
+        w.builder(seed=42).bulk(True).build()
+        db.commit_rw_txn()
+        first = db.reader().by_vecs(queries, n=10, ef_search=64)
+        db.close()
+        db = Database(tmp_path / name, Metric.COSINE, **kw)
+        r = db.reader()
+        assert r._dev.vectors.device.type == name and r.n_items() == n
+        assert r.by_vecs(queries, n=10, ef_search=64) == first
+        w = db.writer(32, m=8, ef=32)
+        w.add_items(range(n, n + 200), extra)
+        w.builder(seed=42).build()
+        db.commit_rw_txn()
+        r = db.reader()
+        r.assert_validity()
+        hits = [row[0][0] for row in r.by_vecs(extra, n=1, ef_search=64)]
+        assert np.mean(np.asarray(hits) == np.arange(n, n + 200)) >= 0.99
+        answers[name] = r.by_vecs(queries, n=10, ef_search=64)
+        links[name] = {k: v for k, v in db._db.prefix_iter(db._env.read_txn(), b"") if k[2] == 2}
+        db.close()
+        assert (beam_cuda.KERNEL.launches > before) == (name == "cuda")
+    assert links["cpu"].keys() == links["cuda"].keys()
+    share = float(np.mean([links["cpu"][k] == links["cuda"][k] for k in links["cpu"]]))
+    print(f"API path cuda vs cpu: identical links records {share:.4f} of {len(links['cpu'])}")
+    assert share >= 0.95
+    exact = distances.np_pairwise(
+        distances.COSINE, queries, distances.np_norms(distances.COSINE, queries),
+        np.concatenate([data, extra]), distances.np_norms(distances.COSINE, np.concatenate([data, extra])),
+    )
+    kth = np.sort(exact, axis=1)[:, 9] + 1e-5
+    recall = {k: float(np.mean([[d <= kth[b] for _, d in row] for b, row in enumerate(v)])) for k, v in answers.items()}
+    print(f"recall@10 cpu {recall['cpu']:.4f} cuda {recall['cuda']:.4f}")
+    assert recall["cuda"] >= recall["cpu"] - 0.02
