@@ -14,12 +14,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    main path's shapes — build hop [4096, 32], search hop [256, 32], the
    bulk build's random candidates [8192, 8], the upper-layer rows of
    ``fill_link_dists`` [4096, 16] — for cosine (atol 1e-5),
-   euclidean and manhattan (rtol 1e-5). Each time is one pair of CUDA
-   events around many back-to-back launches, over the count, with the
-   candidate rows rotating through 8 index sets so that they come from
-   device memory, not the 50 MB L2 cache (median of 5 such pairs); beside
-   it the least time the card could take (its bound: the distinct rows
-   the indices touch, read once);
+   euclidean and manhattan (rtol 1e-5); then the same store in the bf16
+   and int8 tiers (the port's encoders) for the three metrics, and a
+   random store of 768-bit packed rows for hamming and the three binary
+   quantized metrics, at the first three shapes (tiers: 1e-5 relative,
+   summation order only; packed: bit-equal, BQ cosine 1.2e-7 absolute).
+   Every case also checks that an index past the store gives NaN and, for
+   the tiers, a query gathered from the store (a build's). Each time is
+   one pair of CUDA events around many back-to-back launches, over the
+   count, with the candidate rows rotating through 8 index sets so that
+   they come from device memory, not the 50 MB L2 cache (median of 5 such
+   pairs); beside it the least time the card could take (its bound: the
+   distinct rows the indices touch, read once);
 4. the insertion-wave path at 100k × 768 cosine (``bench.py``'s data,
    seed 42): stage → ``build_graph(bulk=False)`` (efc 48, wave 4096) →
    ``check_validity`` → ``to_device`` → ``hnsw_search`` at ef 50 and 100,
@@ -45,16 +51,42 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``hnsw_search`` on the Reader's own device graph: the gap is the API's
    host cost.
 
+7. the packed metrics through the API at the same size: ``Database(path,
+   Metric.BQ_COSINE)`` → ``add_items`` of the 100k × 768 → ``build()``
+   (must take the bulk path) → commit → ``by_vecs`` at ef 100 → close →
+   reopen → the same distances for every query (equal distances tie, and
+   ties may name other items once the link rows come back from the store
+   in id order), ``assert_validity``, tie-aware recall@10
+   >= 0.93 against ``flat_topk`` under the same metric; a HAMMING build of
+   the first 20,000 items by waves (``bulk(False)``, wave 4096), searched
+   and held to the same bar; and the migration: a cosine database of the
+   100k → ``prepare_changing_distance(Metric.BQ_COSINE)`` (the fast path:
+   the links records must all survive the prepare) → ``build()`` →
+   commit → search, recall as above;
+8. the storage tiers through the API at the same size: cosine with
+   ``tier="bf16"`` and ``tier="int8"``, euclidean with ``"raw"``, ``"bf16"``
+   and ``"int8"``: add → build → commit → Reader → ``by_vecs`` at ef 100,
+   recall@10 by id against the exact f32 top-10, beside what an exact
+   scan of the tier's rows keeps of that answer (the encoding's own
+   ceiling) and the recall against that scan (>= 0.93; against f32 at
+   least 0.93 of the ceiling), and the device bytes the Reader's
+   serve-only upload holds and peaks at.
+
 The build seconds of phases 4 and 5 are the wall time of an unfenced
 ``build_graph``, ended by one ``torch.cuda.synchronize()``. The kernel's
 launch counts (in all and per [B, K]) are set to 0 just before the build
 and before the search and read just after each; both must be > 0.
 
 The last three lines are the card line, a JSON object describing the
-kernel, and ``{"ok": true, "device": {...}}``. Its headline time is the
-phase-3 case (cosine) of the shape the default build, its search and the
-API path launch most; its ``launches`` are those of phases 5 and 6, each
-counted from 0. It needs no network and imports nothing of JAX.
+kernel, and ``{"ok": true, "device": {...}}``; the line before them
+(``detail {...}``) holds every timed case and each phase's record. The
+kernel line has one
+entry for each form of the kernel — row type (f32, bf16, int8, packed) ×
+family (dot: cosine; difference: euclidean, manhattan; popcount: the
+packed metrics) — with the launches that phases 5-8 made in that form,
+each step counted from 0, and as its headline the phase-3 case of the
+shape those phases launch most. The run fails if a form was never
+launched. It needs no network and imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -77,6 +109,14 @@ RECALL_BAR = 0.93
 #: build hop, search hop, the bulk build's random-candidate step, the
 #: upper-layer rows of fill_link_dists
 KERNEL_SHAPES = ((4096, 32), (256, 32), (8192, 8), (4096, 16))
+#: the shapes timed for the tier and packed forms: wave hop, search hop,
+#: the bulk build's random candidates
+NEW_FORM_SHAPES = ((256, 32), (4096, 32), (8192, 8))
+PACKED_METRICS = ("hamming", "binary quantized cosine", "binary quantized euclidean", "binary quantized manhattan")
+#: phase 7: items of the HAMMING wave build
+N_HAMMING = 20_000
+#: phase 8: (metric, tier) cells; euclidean "raw" gives the f32 figures
+TIER_CELLS = (("cosine", "bf16"), ("cosine", "int8"), ("euclidean", "raw"), ("euclidean", "bf16"), ("euclidean", "int8"))
 #: phase 6: items appended after the reopen, the store's size limit, and
 #: the least share of appended vectors that must find themselves first
 N_APPEND = 2000
@@ -136,70 +176,160 @@ def per_launch_ms(fns, launches: int) -> float:
     return float(np.median(times))
 
 
-def bound(name: str, b: int, k: int, rows: float) -> tuple[float, str]:
-    """The least time (ms) for the gather-distance function at [b, k, DIM]
-    whose indices touch ``rows`` distinct store rows: the larger of its
-    bytes over the HBM rate — each distinct row once (rows·D·4; a row
-    gathered twice need not be read twice) with its norm for cosine, the
-    queries b·D·4 (and their norms), indices and outputs b·k·(4+4) — and
-    its f32 operations (2 per element for a dot, 3 for a difference and
-    its square or absolute value) over the f32 rate."""
-    norm = 4 if name == "cosine" else 0
-    nbytes = rows * (DIM * 4 + norm) + b * (DIM * 4 + norm) + b * k * 8
+def bound(b: int, k: int, rows: float, row_bytes: int, q_bytes: int, header: bool, ops: int) -> tuple[float, str]:
+    """The least time (ms) for the gather-distance function at [b, k] whose
+    indices touch ``rows`` distinct store rows of ``row_bytes`` each: the
+    larger of its bytes over the HBM rate — each distinct row once (a row
+    gathered twice need not be read twice) with its header where the form
+    reads it (``header``: a norm or a scale), the queries b·``q_bytes``
+    (and their headers), indices and outputs b·k·(4+4) — and its
+    operations, ``ops`` per (query, row) pair (per element 2 for a dot, 3
+    for a difference and its square or absolute value; per 32-bit lane 3
+    for xor, popcount and add), over the f32 rate outside the tensor
+    cores (taken for the integer pipe as well)."""
+    head = 4 if header else 0
+    nbytes = rows * (row_bytes + head) + b * (q_bytes + head) + b * k * 8
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = b * k * DIM * (2 if name == "cosine" else 3) / F32_FLOPS * 1e3
+    ops_ms = b * k * ops / F32_FLOPS * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
-def check_kernel(device) -> list[dict]:
-    """Phase 3: the kernel against its plain twin at the main path's shapes."""
+def _index_sets(gen, device, make_query, b: int, k: int):
+    """``INDEX_SETS`` × (q, qn, idx) with 5% of the indices at -1."""
     import torch
 
-    from hannoy_tpu_torch.ops import beam_cuda, distances
+    sets = []
+    for _ in range(INDEX_SETS):
+        q, qn = make_query(b)
+        idx = torch.randint(0, N, (b, k), generator=gen, device=device, dtype=torch.int32)
+        idx[torch.rand((b, k), generator=gen, device=device) < 0.05] = -1
+        sets.append((q, qn, idx))
+    return sets
+
+
+def kernel_case(metric, row: str, store, norms, sets, tol: str, row_bytes: int, q_bytes: int, ops: int, build_query=None) -> dict:
+    """One phase-3 case: the kernel against its twin on ``sets[0]`` (also
+    with one index past the store, which must give NaN, and with
+    ``build_query`` = (q, qn) gathered from the store), then both timed
+    over all the sets. ``tol``: "abs" 1e-5, "rel" 1e-5, "exact", or "ulp"
+    (1.2e-7 absolute)."""
+    import torch
+
+    from hannoy_tpu_torch.ops import beam_cuda
+
+    name = metric.name
+    q, qn, idx = sets[0]
+    b, k = idx.shape
+
+    def errors(got, want):
+        err = (got - want).abs()
+        max_abs = float(err.max())
+        max_rel = float((err / want.abs().clamp(min=1e-30)).max())
+        ok = {"abs": max_abs <= 1e-5, "rel": float((err - 1e-5 * want.abs()).max()) <= 1e-6 if name == "cosine" else max_rel <= 1e-5,
+              "exact": bool(torch.equal(got, want)), "ulp": max_abs <= 1.2e-7}[tol]
+        return ok and bool(torch.isfinite(got).all()), max_abs, max_rel
+
+    got = beam_cuda.gathered_distances(metric, store, norms, q, qn, idx)
+    want = beam_cuda.gathered_distances_plain(metric, store, norms, q, qn, idx)
+    torch.cuda.synchronize()
+    ok, max_abs, max_rel = errors(got, want)
+    # an index past the store gives NaN there and changes nothing else
+    past = idx.clone()
+    past[0, 0] = N
+    marked = beam_cuda.gathered_distances(metric, store, norms, q, qn, past)
+    ok = ok and bool(torch.isnan(marked[0, 0])) and int(torch.isnan(marked).sum()) == 1
+    ok = ok and bool(torch.equal(marked.flatten()[1:], got.flatten()[1:]))
+    if build_query is not None:
+        bq, bqn = build_query
+        ok_b, abs_b, rel_b = errors(beam_cuda.gathered_distances(metric, store, norms, bq, bqn, idx),
+                                    beam_cuda.gathered_distances_plain(metric, store, norms, bq, bqn, idx))
+        ok, max_abs, max_rel = ok and ok_b, max(max_abs, abs_b), max(max_rel, rel_b)
+    kernel_fns = [lambda s=s: beam_cuda.gathered_distances(metric, store, norms, *s) for s in sets]
+    plain_fns = [lambda s=s: beam_cuda.gathered_distances_plain(metric, store, norms, *s) for s in sets]
+    launches = max(16, (1 << 22) // (b * k))
+    rows = float(np.mean([torch.unique(s[2].clamp(min=0)).numel() for s in sets]))
+    family = beam_cuda.form_of(metric, store.dtype)[1]
+    header = name in ("cosine", "binary quantized cosine") or (row == "int8" and family == "difference")
+    bound_ms, bound_by = bound(b, k, rows, row_bytes, q_bytes, header, ops)
+    case = {
+        "form": f"{row}/{family}", "metric": name, "shape": [b, k, store.shape[1]], "tolerance": tol,
+        "max_abs_err": max_abs, "max_rel_err": max_rel,
+        "ms": per_launch_ms(kernel_fns, launches),
+        "plain_ms": per_launch_ms(plain_fns, max(8, launches // 8)),
+        "bound_ms": bound_ms, "bound_by": bound_by, "distinct_rows": rows,
+        "launches_per_event_pair": launches,
+    }
+    case["roofline_share"] = bound_ms / case["ms"]
+    print(f"kernel {row} {name} [{b},{k},{store.shape[1]}]: max_abs_err {max_abs:.3e} max_rel_err {max_rel:.3e} ({tol}) "
+          f"kernel {case['ms']:.5f} ms plain {case['plain_ms']:.5f} ms "
+          f"bound {bound_ms:.5f} ms "
+          f"({bound_by}, {rows:.0f} distinct rows; share {case['roofline_share']:.3f}; "
+          f"{launches} launches per event pair)", flush=True)
+    if not ok:
+        raise AssertionError(f"kernel disagrees with its twin: {case}")
+    return case
+
+
+def check_kernel(device) -> list[dict]:
+    """Phase 3: every form of the kernel against its plain twin at the
+    main path's shapes."""
+    import torch
+
+    from hannoy_tpu_torch.models import hnsw
+    from hannoy_tpu_torch.ops import distances
 
     gen = torch.Generator(device=device).manual_seed(0)
     store = torch.randn((N, DIM), generator=gen, device=device)
+    zeros = torch.zeros(N, device=device)
     cases = []
+
+    def f32_query(name):
+        def make(b):
+            q = torch.randn((b, DIM), generator=gen, device=device)
+            return q, (q.norm(dim=1) if name == "cosine" else torch.zeros(b, device=device))
+        return make
+
     for name in ("cosine", "euclidean", "manhattan"):
         metric = distances.by_name(name)
-        norms = store.norm(dim=1) if name == "cosine" else torch.zeros(N, device=device)
+        norms = store.norm(dim=1) if name == "cosine" else zeros
         for b, k in KERNEL_SHAPES:
-            sets = []
-            for _ in range(INDEX_SETS):
-                q = torch.randn((b, DIM), generator=gen, device=device)
-                qn = q.norm(dim=1) if name == "cosine" else torch.zeros(b, device=device)
-                idx = torch.randint(0, N, (b, k), generator=gen, device=device, dtype=torch.int32)
-                idx[torch.rand((b, k), generator=gen, device=device) < 0.05] = -1
-                sets.append((q, qn, idx))
-            q, qn, idx = sets[0]
-            got = beam_cuda.gathered_distances(metric, store, norms, q, qn, idx)
-            want = beam_cuda.gathered_distances_plain(metric, store, norms, q, qn, idx)
-            torch.cuda.synchronize()
-            err = (got - want).abs()
-            max_abs = float(err.max())
-            max_rel = float((err / want.abs().clamp(min=1e-30)).max())
-            ok = max_abs <= 1e-5 if name == "cosine" else max_rel <= 1e-5
-            kernel_fns = [lambda s=s: beam_cuda.gathered_distances(metric, store, norms, *s) for s in sets]
-            plain_fns = [lambda s=s: beam_cuda.gathered_distances_plain(metric, store, norms, *s) for s in sets]
-            launches = max(16, (1 << 22) // (b * k))
-            rows = float(np.mean([torch.unique(s[2].clamp(min=0)).numel() for s in sets]))
-            bound_ms, bound_by = bound(name, b, k, rows)
-            case = {
-                "metric": name, "shape": [b, k, DIM], "max_abs_err": max_abs, "max_rel_err": max_rel,
-                "ms": per_launch_ms(kernel_fns, launches),
-                "plain_ms": per_launch_ms(plain_fns, max(8, launches // 8)),
-                "bound_ms": bound_ms, "bound_by": bound_by, "distinct_rows": rows,
-                "launches_per_event_pair": launches,
-            }
-            case["roofline_share"] = bound_ms / case["ms"]
-            print(f"kernel {name} [{b},{k},{DIM}]: max_abs_err {max_abs:.3e} max_rel_err {max_rel:.3e} "
-                  f"kernel {case['ms']:.5f} ms plain {case['plain_ms']:.5f} ms "
-                  f"bound {bound_ms:.5f} ms "
-                  f"({bound_by}, {rows:.0f} distinct rows; share {case['roofline_share']:.3f}; "
-                  f"{launches} launches per event pair)", flush=True)
-            if not (ok and torch.isfinite(got).all()):
-                raise AssertionError(f"kernel disagrees with its twin: {case}")
-            cases.append(case)
+            sets = _index_sets(gen, device, f32_query(name), b, k)
+            cases.append(kernel_case(metric, "f32", store, norms, sets, "abs" if name == "cosine" else "rel",
+                                     DIM * 4, DIM * 4, DIM * (2 if name == "cosine" else 3)))
+
+    # the storage tiers of the same store, through the port's encoders
+    host = store.cpu().numpy()
+    for tier, elem in (("bf16", 2), ("int8", 1)):
+        for name in ("cosine", "euclidean", "manhattan"):
+            metric = distances.by_name(name)
+            rows, headers = hnsw.encode_tier(metric, host, distances.np_norms(metric, host), tier)
+            t_rows = (rows if isinstance(rows, torch.Tensor) else torch.from_numpy(rows)).to(device)
+            t_norms = torch.from_numpy(np.ascontiguousarray(headers)).to(device)
+            for b, k in NEW_FORM_SHAPES:
+                sets = _index_sets(gen, device, f32_query(name), b, k)
+                pick = torch.randint(0, N, (b,), generator=gen, device=device)
+                cases.append(kernel_case(metric, tier, t_rows, t_norms, sets, "rel", DIM * elem, DIM * 4,
+                                         DIM * (2 if name == "cosine" else 3),
+                                         build_query=(t_rows[pick].contiguous(), t_norms[pick].contiguous())))
+            del t_rows, t_norms
+    del host
+
+    # packed rows: 768 random bits a row, as int32 lanes
+    lanes = DIM // 32
+    packed = torch.randint(-(2**31), 2**31, (N, lanes), generator=gen, device=device, dtype=torch.int64).to(torch.int32)
+    for name in PACKED_METRICS:
+        metric = distances.by_name(name)
+        fill = float(np.sqrt(np.float32(DIM))) if name == "binary quantized cosine" else 0.0
+        norms = torch.full((N,), fill, device=device)
+
+        def packed_query(b, fill=fill):
+            q = torch.randint(-(2**31), 2**31, (b, lanes), generator=gen, device=device, dtype=torch.int64).to(torch.int32)
+            return q, torch.full((b,), fill, device=device)
+
+        for b, k in NEW_FORM_SHAPES:
+            sets = _index_sets(gen, device, packed_query, b, k)
+            cases.append(kernel_case(metric, "packed", packed, norms, sets,
+                                     "ulp" if name == "binary quantized cosine" else "exact", lanes * 4, lanes * 4, lanes * 3))
     return cases
 
 
@@ -303,7 +433,30 @@ def profiled_build(device, data, label: str, **opts) -> dict:
     return out
 
 
-def drive(device, data, queries, label: str, **opts) -> dict:
+#: launches of the main path (phases 5-8) per form "row/family" → {"launches", "by_shape"}
+MAIN_PATH: dict[str, dict] = {}
+
+
+def count_main_path(step: str) -> dict:
+    """Add the kernel's counts since its last reset (one step of the main
+    path, counted from 0) to ``MAIN_PATH`` → that step's launches per form.
+    A step that ran one form gives that form its launches per [B, K]."""
+    from hannoy_tpu_torch.ops import beam_cuda
+
+    kernel = beam_cuda.KERNEL
+    forms = {f"{row}/{family}": n for (row, family), n in kernel.by_form.items()}
+    if sum(forms.values()) != kernel.launches:
+        raise AssertionError(f"[{step}] launches per form {forms} do not add up to {kernel.launches}")
+    for form, n in forms.items():
+        entry = MAIN_PATH.setdefault(form, {"launches": 0, "by_shape": {}})
+        entry["launches"] += n
+        if len(forms) == 1:
+            for shape, m in _shapes(kernel.by_shape).items():
+                entry["by_shape"][shape] = entry["by_shape"].get(shape, 0) + m
+    return forms
+
+
+def drive(device, data, queries, label: str, main_path: bool = False, **opts) -> dict:
     """Stage → build → validate → upload → search, with recall; the kernel
     launches counted around the build and around the search."""
     import torch
@@ -319,6 +472,8 @@ def drive(device, data, queries, label: str, **opts) -> dict:
     beam_cuda.KERNEL.reset_counts()
     g, stats, build_s, spans = timed_build(device, data, **opts)
     build_launches, build_shapes = beam_cuda.KERNEL.launches, _shapes(beam_cuda.KERNEL.by_shape)
+    if main_path:
+        count_main_path(f"{label}: build")
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
     print(f"[{label}] build: {N} x {DIM} cosine in {build_s:.3f} s ({N / build_s:.1f} vec/s), waves {stats.waves}, "
           f"beam iters {stats.beam_iters}, max_level {g.max_level}, kernel launches {build_launches} {build_shapes}, "
@@ -357,6 +512,8 @@ def drive(device, data, queries, label: str, **opts) -> dict:
         print(f"[{label}] search ef={ef} ef_upper={efu}: recall@10 {recall:.4f}, {N_QUERIES / dt:.1f} QPS "
               f"({dt * 1e3:.3f} ms per {N_QUERIES}-query batch), beam iters {int(res.iters)}", flush=True)
     search_launches, search_shapes = beam_cuda.KERNEL.launches, _shapes(beam_cuda.KERNEL.by_shape)
+    if main_path:
+        count_main_path(f"{label}: search")
     print(f"[{label}] search kernel launches {search_launches} {search_shapes}", flush=True)
     if results[EF_SWEEP[-1]]["recall_at_10"] < RECALL_BAR:
         raise AssertionError(f"[{label}] recall@10 at ef={EF_SWEEP[-1]} below {RECALL_BAR}: {results}")
@@ -402,13 +559,7 @@ def api_path(device, data, queries, card: str) -> dict:
         return tracing.record(fence=lambda: _sync(device), probe=lambda: kernel.launches)
 
     def timed(what: str, fn):
-        _sync(device)
-        t0 = time.perf_counter()
-        out = fn()
-        _sync(device)
-        dt = time.perf_counter() - t0
-        print(f"[{label}] {what}: {dt:.3f} s ({card})", flush=True)
-        return out, dt
+        return _timed(label, card, device, what, fn)
 
     out: dict = {"seconds": {}, "spans": {}, "launches_by_shape": {}}
     kernel.reset_counts()
@@ -433,6 +584,7 @@ def api_path(device, data, queries, card: str) -> dict:
         before, _ = timed(f"Reader.by_vecs, first call, ef={ef}", lambda: reader.by_vecs(queries, n=K, ef_search=ef))
         out["launches_by_shape"]["build_and_search"] = _shapes(kernel.by_shape)
         step1 = kernel.launches
+        count_main_path(f"{label}: build and search")
         db.close()
 
         # ---- step 2: reopen → the same answers, recall, validity ----
@@ -467,13 +619,6 @@ def api_path(device, data, queries, card: str) -> dict:
         # rest is the API's host work, whatever the card did between turns.
         efu = default_ef_upper(N, ef)
 
-        def one(fn) -> float:
-            _sync(device)
-            t0 = time.perf_counter()
-            fn()
-            _sync(device)
-            return time.perf_counter() - t0
-
         def engine():
             hnsw_search(reader._dev, q, qn, ef, max_iters=2 * ef + 16, ef_upper=efu)
 
@@ -484,9 +629,9 @@ def api_path(device, data, queries, card: str) -> dict:
         times: dict[str, list] = {"by_vecs": [], "of which reader_search": [], "hnsw_search": []}
         for _ in range(reps):
             with tracing.record() as spans:
-                times["by_vecs"].append(one(lambda: reader.by_vecs(queries, n=K, ef_search=ef)))
+                times["by_vecs"].append(one_call(device, lambda: reader.by_vecs(queries, n=K, ef_search=ef)))
             times["of which reader_search"].append(sum(s.ms for s in spans if s.name == "reader_search") / 1e3)
-            times["hnsw_search"].append(one(engine))
+            times["hnsw_search"].append(one_call(device, engine))
         med = {name: float(np.median(t)) for name, t in times.items()}
         out["qps"] = {name: N_QUERIES / med[name] for name in ("by_vecs", "hnsw_search")}
         out["api_host_ms_per_batch"] = (med["by_vecs"] - med["of which reader_search"]) * 1e3
@@ -497,6 +642,7 @@ def api_path(device, data, queries, card: str) -> dict:
               f"{out['qps']['hnsw_search']:.1f} QPS ({med['hnsw_search'] * 1e3:.3f} ms) ({card})", flush=True)
         out["launches_by_shape"]["reopen_and_search"] = _shapes(kernel.by_shape)
         step2 = kernel.launches
+        count_main_path(f"{label}: reopen and search")
 
         # ---- step 3: append after the reopen → incremental build ----
         kernel.reset_counts()
@@ -533,6 +679,7 @@ def api_path(device, data, queries, card: str) -> dict:
         g.check_validity()
         out["launches_by_shape"]["append"] = _shapes(kernel.by_shape)
         step3 = kernel.launches
+        count_main_path(f"{label}: append")
         db.close()
     out.update(recall_at_10=recall, self_hit=self_hit, launches=step1 + step2 + step3,
                launches_by_step={"build_and_search": step1, "reopen_and_search": step2, "append": step3})
@@ -540,6 +687,283 @@ def api_path(device, data, queries, card: str) -> dict:
     if min(step1, step2, step3) == 0:
         raise AssertionError(f"[{label}] a step launched no kernel: {out['launches_by_step']}")
     return out
+
+
+def _timed(label: str, card: str, device, what: str, fn):
+    _sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(device)
+    dt = time.perf_counter() - t0
+    print(f"[{label}] {what}: {dt:.3f} s ({card})", flush=True)
+    return out, dt
+
+
+def _tie_aware_recall(label: str, reader, queries, answers, metric) -> float:
+    """recall@K of ``answers`` (``by_vecs`` rows) against ``flat_topk`` on
+    the Reader's own device rows: the share of returned distances within
+    the exact K-th distance + 1e-6 (packed distances tie heavily)."""
+    from hannoy_tpu_torch import flat_topk
+
+    q, qn = reader._prep_queries(queries)
+    exact_d, _ = flat_topk(metric.name, q, qn, reader._dev.vectors, reader._dev.norms, reader._dev.valid, K)
+    thresh = (exact_d[:, K - 1] + 1e-6).cpu().numpy()
+    if not all(len(row) == K for row in answers):
+        raise AssertionError(f"[{label}] a query came back with fewer than {K} results")
+    return float(np.mean([[d <= thresh[b] for _, d in row] for b, row in enumerate(answers)]))
+
+
+def _n_links_records(db) -> int:
+    """Links records of index 0 as the shared write transaction sees them."""
+    from hannoy_tpu_torch.store.schema import Prefix
+
+    return sum(1 for _ in db._db.prefix_iter(db._wtxn(), Prefix.links(0)))
+
+
+def packed_path(device, data, queries, card: str) -> dict:
+    """Phase 7: the packed metrics through Database / Writer / Reader."""
+    from hannoy_tpu_torch import Database, Metric
+    from hannoy_tpu_torch.ops import beam_cuda, codecs, distances
+    from hannoy_tpu_torch.utils import tracing
+
+    label = "phase 7: packed API path"
+    kernel = beam_cuda.KERNEL
+    ef = EF_SWEEP[-1]
+    out: dict = {"seconds": {}, "spans": {}, "recall_at_10": {}, "launches": {}}
+
+    def recorded():
+        return tracing.record(fence=lambda: _sync(device), probe=lambda: kernel.launches)
+
+    def timed(what, fn):
+        return _timed(label, card, device, what, fn)
+
+    def need_form(step: str, forms: dict, form: str = "packed/popcount") -> None:
+        if set(forms) != {form}:
+            raise AssertionError(f"[{label}] {step} launched {forms}, expected only {form}")
+        out["launches"][step] = forms[form]
+
+    # ---- (a) BQ cosine, 100k: add → bulk build → commit → search → reopen ----
+    metric = distances.BQ_COSINE
+    with tempfile.TemporaryDirectory() as path:
+        kernel.reset_counts()
+        db = Database(path, Metric.BQ_COSINE, map_size=API_MAP_SIZE)
+        writer = db.writer(dimensions=DIM, m=M, ef=EFC)
+        _, out["seconds"]["bq_add_items"] = timed(f"BQ cosine add_items of {N} x {DIM}", lambda: writer.add_items(range(N), data))
+        with recorded() as spans:
+            stats, out["seconds"]["bq_build"] = timed("BQ cosine build (fenced spans)", lambda: writer.builder(seed=42).build())
+        out["spans"]["bq_build"] = _print_spans(label, spans, skip=())
+        if "bulk_build" not in out["spans"]["bq_build"]:
+            raise AssertionError(f"[{label}] the BQ cosine build of {N} items did not take the bulk path")
+        _, out["seconds"]["bq_commit"] = timed("commit_rw_txn", db.commit_rw_txn)
+        reader = db.reader()
+        if reader._dev.vectors.dtype != distances.device_dtype(metric) or reader._dev.vectors.shape[1] != DIM // 32:
+            raise AssertionError(f"[{label}] BQ rows on the device are {reader._dev.vectors.dtype} {tuple(reader._dev.vectors.shape)}")
+        before, out["seconds"]["bq_first_by_vecs"] = timed(f"Reader.by_vecs, first call, ef={ef}", lambda: reader.by_vecs(queries, n=K, ef_search=ef))
+        print(f"[{label}] BQ cosine build touched {len(stats.touched)} rows; kernel launches {kernel.launches} "
+              f"{_shapes(kernel.by_shape)}", flush=True)
+        need_form("bq_build_and_search", count_main_path(f"{label}: BQ build and search"))
+        db.close()
+
+        kernel.reset_counts()
+        db, out["seconds"]["bq_reopen"] = timed("Database reopen", lambda: Database(path, Metric.BQ_COSINE, map_size=API_MAP_SIZE))
+        reader, out["seconds"]["bq_reader_open"] = timed("Reader.open (load + upload)", db.reader)
+        after = reader.by_vecs(queries, n=K, ef_search=ef)
+        # Packed distances tie (integers out of 768): a reloaded graph's
+        # link rows come back in id order, the built one's are in distance
+        # order, and ties in the beam's pool then fall to other items. The
+        # answers must be the same up to that: the same distances, row for row.
+        changed = sum([d for _, d in a] != [d for _, d in b] for a, b in zip(after, before))
+        out["bq_rows_with_other_tied_ids"] = sum(a != b for a, b in zip(after, before))
+        if changed or reader.n_items() != N:
+            raise AssertionError(f"[{label}] {changed} of {N_QUERIES} BQ answers changed their distances across close "
+                                 f"and reopen, or {reader.n_items()} items")
+        _, out["seconds"]["bq_assert_validity"] = timed("Reader.assert_validity", reader.assert_validity)
+        recall = _tie_aware_recall(label, reader, queries, after, metric)
+        # the oracle itself against numpy on a few queries
+        lanes = codecs.pack(queries[:4], metric.codec)
+        few = distances.np_pairwise(metric, lanes, distances.np_norms(metric, lanes),
+                                    reader._graph.vectors[:N], reader._graph.norms[:N])
+        best = np.sort(few, axis=1)[:, 0]
+        got = np.asarray([row[0][1] for row in after[:4]])
+        if not (got >= best - 1e-6).all():
+            raise AssertionError(f"[{label}] a BQ answer lies below numpy's least distance: {got} < {best}")
+        t = [one_call(device, lambda: reader.by_vecs(queries, n=K, ef_search=ef)) for _ in range(5)]
+        out["recall_at_10"]["bq_cosine"] = recall
+        out["bq_qps"] = N_QUERIES / float(np.median(t))
+        print(f"[{label}] BQ cosine {N} x {DIM}: the {N_QUERIES} answers hold the same distances after the reopen "
+              f"({out['bq_rows_with_other_tied_ids']} rows name other items among ties); recall@10 at ef={ef} "
+              f"{recall:.4f}; Reader.by_vecs {out['bq_qps']:.1f} QPS (median of 5 calls) ({card})", flush=True)
+        if recall < RECALL_BAR:
+            raise AssertionError(f"[{label}] BQ cosine recall@10 {recall} below {RECALL_BAR}")
+        need_form("bq_reopen_and_search", count_main_path(f"{label}: BQ reopen and search"))
+        db.close()
+
+    # ---- (b) HAMMING, 20k, insertion waves: the packed wave hop and flat candidates ----
+    metric = distances.HAMMING
+    with tempfile.TemporaryDirectory() as path:
+        kernel.reset_counts()
+        db = Database(path, Metric.HAMMING, map_size=API_MAP_SIZE)
+        writer = db.writer(dimensions=DIM, m=M, ef=EFC)
+        writer.add_items(range(N_HAMMING), data[:N_HAMMING])
+        with recorded() as spans:
+            stats, out["seconds"]["hamming_build"] = timed(
+                f"HAMMING wave build of {N_HAMMING} x {DIM}", lambda: writer.builder(seed=42).bulk(False).wave_size(WAVE).build())
+        sp = out["spans"]["hamming_build"] = _print_spans(label, spans, skip=())
+        if "bulk_build" in sp or "insert_wave" not in sp:
+            raise AssertionError(f"[{label}] the HAMMING build did not go by waves: {sorted(sp)}")
+        db.commit_rw_txn()
+        reader = db.reader()
+        reader.assert_validity()
+        answers = reader.by_vecs(queries, n=K, ef_search=ef)
+        recall = out["recall_at_10"]["hamming"] = _tie_aware_recall(label, reader, queries, answers, metric)
+        print(f"[{label}] HAMMING {N_HAMMING} x {DIM} by {stats.waves} waves: recall@10 at ef={ef} {recall:.4f}; "
+              f"kernel launches {kernel.launches} {_shapes(kernel.by_shape)}", flush=True)
+        if recall < RECALL_BAR:
+            raise AssertionError(f"[{label}] HAMMING recall@10 {recall} below {RECALL_BAR}")
+        need_form("hamming_build_and_search", count_main_path(f"{label}: HAMMING wave build and search"))
+        db.close()
+
+    # ---- (c) the migration: cosine → BQ cosine, links kept ----
+    with tempfile.TemporaryDirectory() as path:
+        kernel.reset_counts()
+        db = Database(path, Metric.COSINE, map_size=API_MAP_SIZE)
+        writer = db.writer(dimensions=DIM, m=M, ef=EFC)
+        writer.add_items(range(N), data)
+        _, out["seconds"]["migration_cosine_build"] = timed("cosine build before the migration", lambda: writer.builder(seed=42).build())
+        db.commit_rw_txn()
+        need_form("migration_cosine_build", count_main_path(f"{label}: cosine build before the migration"), "f32/dot")
+        kernel.reset_counts()
+        links_before = _n_links_records(db)
+        writer2, out["seconds"]["prepare_changing_distance"] = timed(
+            "prepare_changing_distance(Metric.BQ_COSINE)", lambda: writer.prepare_changing_distance(Metric.BQ_COSINE))
+        links_after = _n_links_records(db)
+        if links_after != links_before or links_before < N:
+            raise AssertionError(f"[{label}] the fast path kept {links_after} of {links_before} links records")
+        with recorded() as spans:
+            stats, out["seconds"]["migration_build"] = timed("build after the prepare (fenced spans)", lambda: writer2.builder(seed=42).build())
+        sp = out["spans"]["migration_build"] = _print_spans(label, spans, skip=())
+        for need in ("load_graph", "fill_link_dists"):
+            if need not in sp:
+                raise AssertionError(f"[{label}] the migration build did not go through {need}")
+        writer2._database.commit_rw_txn()
+        db.close()
+        db = Database(path, Metric.BQ_COSINE, map_size=API_MAP_SIZE)
+        reader = db.reader()
+        reader.assert_validity()
+        answers = reader.by_vecs(queries, n=K, ef_search=ef)
+        recall = out["recall_at_10"]["migrated_bq_cosine"] = _tie_aware_recall(label, reader, queries, answers, distances.BQ_COSINE)
+        print(f"[{label}] cosine -> BQ cosine: {links_before} links records before the prepare, {links_after} after; "
+              f"{reader.n_items()} items; recall@10 at ef={ef} {recall:.4f}; kernel launches {kernel.launches} "
+              f"{_shapes(kernel.by_shape)}", flush=True)
+        if recall < RECALL_BAR or reader.n_items() != N:
+            raise AssertionError(f"[{label}] migrated recall@10 {recall} below {RECALL_BAR}, or {reader.n_items()} items")
+        need_form("migration_build_and_search", count_main_path(f"{label}: migration build and search"))
+        db.close()
+    return out
+
+
+def one_call(device, fn) -> float:
+    _sync(device)
+    t0 = time.perf_counter()
+    fn()
+    _sync(device)
+    return time.perf_counter() - t0
+
+
+def tier_path(device, data, queries, card: str) -> dict:
+    """Phase 8: the storage tiers through Database(tier=) / Writer / Reader."""
+    import torch
+
+    from hannoy_tpu_torch import Database, Metric, flat_topk
+    from hannoy_tpu_torch.ops import beam_cuda, distances
+
+    label = "phase 8: storage tiers"
+    kernel = beam_cuda.KERNEL
+    ef = EF_SWEEP[-1]
+    out: dict = {}
+    rows_f32 = torch.from_numpy(data).to(device)
+    valid = torch.ones(N, dtype=torch.bool, device=device)
+    q = torch.from_numpy(queries).to(device)
+    exact = {}
+    for name in sorted({name for name, _ in TIER_CELLS}):
+        metric = distances.by_name(name)
+        nrm = torch.from_numpy(distances.np_norms(metric, data)).to(device)
+        qn = torch.from_numpy(distances.np_norms(metric, queries)).to(device)
+        exact[name] = flat_topk(name, q, qn, rows_f32, nrm, valid, K)[1].cpu().numpy()  # slot == item id
+    del rows_f32, valid, q
+    for name, tier in TIER_CELLS:
+        cell = out[f"{name}/{tier}"] = {}
+        metric = distances.by_name(name)
+        with tempfile.TemporaryDirectory() as path:
+            kernel.reset_counts()
+            db = Database(path, Metric(name), map_size=API_MAP_SIZE, tier=tier)
+            writer = db.writer(dimensions=DIM, m=M, ef=EFC)
+            writer.add_items(range(N), data)
+            with_spans, cell["build_s"] = _timed(label, card, device, f"{name} tier={tier} build of {N} x {DIM}",
+                                                 lambda: _spans_of(lambda: writer.builder(seed=42).build()))
+            if "bulk_build" not in with_spans:
+                raise AssertionError(f"[{label}] the {name} {tier} build did not take the bulk path")
+            db.commit_rw_txn()
+            cuda = device.type == "cuda"
+            if cuda:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats(device)
+            base = torch.cuda.memory_allocated(device) if cuda else 0
+            reader = db.reader()
+            _sync(device)
+            cell["reader_bytes"] = torch.cuda.memory_allocated(device) - base if cuda else 0
+            cell["reader_peak_bytes"] = torch.cuda.max_memory_allocated(device) - base if cuda else 0
+            cell["row_bytes"] = reader._dev.vectors.element_size() * reader._dev.vectors.shape[1]
+            want_dtype = {"raw": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}[tier]
+            if reader._dev.vectors.dtype != want_dtype:
+                raise AssertionError(f"[{label}] {name} {tier}: device rows are {reader._dev.vectors.dtype}")
+            answers = reader.by_vecs(queries, n=K, ef_search=ef)
+            found = [{i for i, _ in row} for row in answers]
+            # the tier's own exact top-10 (an exact scan of the rows the
+            # Reader holds): what the encoding keeps of the f32 answer, and
+            # what the graph search keeps of the tier's
+            tq, tqn = reader._prep_queries(queries)
+            own = flat_topk(name, tq, tqn, reader._dev.vectors, reader._dev.norms, reader._dev.valid, K)[1].cpu().numpy()
+
+            def overlap(a, b) -> float:
+                return float(np.mean([len(set(a[r]) & set(b[r])) for r in range(N_QUERIES)])) / K
+
+            cell["recall_at_10"] = overlap(found, exact[name].tolist())
+            cell["recall_at_10_own_rows"] = overlap(found, own.tolist())
+            cell["exact_scan_recall_at_10"] = overlap(own.tolist(), exact[name].tolist())
+            t = [one_call(device, lambda: reader.by_vecs(queries, n=K, ef_search=ef)) for _ in range(5)]
+            cell["qps"] = N_QUERIES / float(np.median(t))
+            reader.assert_validity()
+            forms = count_main_path(f"{label}: {name} {tier}")
+            form = "/".join(beam_cuda.form_of(metric, want_dtype))
+            if set(forms) != {form}:
+                raise AssertionError(f"[{label}] {name} {tier} launched {forms}, expected only {form}")
+            cell["launches"] = forms[form]
+            print(f"[{label}] {name} tier={tier}: recall@10 at ef={ef} against the exact f32 top-10 {cell['recall_at_10']:.4f} "
+                  f"(an exact scan of the tier's rows reaches {cell['exact_scan_recall_at_10']:.4f}), against the exact "
+                  f"top-10 of the tier's rows {cell['recall_at_10_own_rows']:.4f}; "
+                  f"Reader.by_vecs {cell['qps']:.1f} QPS (median of 5); a row takes {cell['row_bytes']} bytes, the Reader's "
+                  f"whole upload holds {cell['reader_bytes'] / N:.1f} bytes per item ({cell['reader_bytes'] / 2**20:.1f} MiB, peak "
+                  f"{cell['reader_peak_bytes'] / 2**20:.1f} MiB); kernel launches {kernel.launches} ({form}) ({card})", flush=True)
+            # the graph search must reach the bar on the rows it serves, and
+            # against f32 the bar's share of what the tier's encoding itself
+            # keeps of the f32 answer (an exact scan of its rows)
+            floor = RECALL_BAR * cell["exact_scan_recall_at_10"]
+            if cell["recall_at_10_own_rows"] < RECALL_BAR or cell["recall_at_10"] < floor:
+                raise AssertionError(f"[{label}] {name} {tier}: recall@10 {cell['recall_at_10_own_rows']} on its own rows "
+                                     f"(bar {RECALL_BAR}), {cell['recall_at_10']} against f32 (floor {floor})")
+            del reader
+            db.close()
+    return out
+
+
+def _spans_of(fn) -> set:
+    """Run ``fn`` → the names of the spans it opened."""
+    from hannoy_tpu_torch.utils import tracing
+
+    with tracing.record() as spans:
+        fn()
+    return {s.name for s in spans}
 
 
 def main() -> int:
@@ -564,9 +988,14 @@ def main() -> int:
     # phase 2: build the kernel
     so = beam_cuda.KERNEL.build()
     print(f"kernel built: {os.path.relpath(so)} in {beam_cuda.KERNEL.build_seconds:.2f} s", flush=True)
-    for line in beam_cuda.KERNEL.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  nvcc: {line.strip()}", flush=True)
+    import re
+
+    log = beam_cuda.KERNEL.build_log
+    regs = [int(n) for n in re.findall(r"Used (\d+) registers", log)]
+    spills = [int(n) for n in re.findall(r"(\d+) bytes spill", log)]
+    if regs:
+        print(f"  nvcc: {len(regs)} kernels, {min(regs)}-{max(regs)} registers a thread, "
+              f"{max(spills, default=0)} bytes of spills at most", flush=True)
     from hannoy_tpu_torch.store import native_env
 
     t0 = time.perf_counter()
@@ -574,46 +1003,67 @@ def main() -> int:
     print(f"store library built: {os.path.relpath(native_env.library_path())} in {time.perf_counter() - t0:.2f} s", flush=True)
 
     cases = check_kernel(device)  # phase 3
+    if "--kernel-only" in sys.argv[1:]:  # a short first run of new kernel code: build, check, time, stop
+        print(f"chip_smoke --kernel-only: {len(cases)} cases agree with their twins; phases 4-8 not run", flush=True)
+        return 0
     torch.cuda.empty_cache()
     data, queries = bench_data(np.random.default_rng(42))
     waves = drive(device, data, queries, "phase 4: wave build", bulk=False)  # phase 4
     torch.cuda.empty_cache()
-    default = drive(device, data, queries, "phase 5: default build")  # phase 5
+    default = drive(device, data, queries, "phase 5: default build", main_path=True)  # phase 5
     if "bulk_build" not in default["span_names"]:
         raise AssertionError("phase 5: the default build did not take the bulk path")
     default["fenced"] = fenced_spans(device, data, "phase 5: default build")
     default["profiled"] = profiled_build(device, data, "phase 5: default build")
     torch.cuda.empty_cache()
     api = api_path(device, data, queries, card)  # phase 6
+    torch.cuda.empty_cache()
+    packed = packed_path(device, data, queries, card)  # phase 7
+    torch.cuda.empty_cache()
+    tiers = tier_path(device, data, queries, card)  # phase 8
 
-    # each timed case beside its launches on both paths; the headline is
-    # the case the default build and search launch most
+    # the f32 cases beside their launches on the earlier paths
     for c in cases:
-        key = f"{c['shape'][0]}x{c['shape'][1]}"
-        for path, res in (("wave_build", waves), ("default_build", default)):
-            c[f"launches_{path}"] = res["build_launches_by_shape"].get(key, 0) + res["search_launches_by_shape"].get(key, 0)
-        c["launches_api_path"] = sum(step.get(key, 0) for step in api["launches_by_shape"].values())
-    main_launches = default["build_launches"] + default["search_launches"] + api["launches"]
-    head = max((c for c in cases if c["metric"] == "cosine"),
-               key=lambda c: c["launches_default_build"] + c["launches_api_path"])
-    print(f"headline case: cosine {head['shape']}, {head['launches_default_build'] + head['launches_api_path']} of "
-          f"{main_launches} launches of the default build, its search and the API path", flush=True)
-    kernels = {"kernels": [{
-        "name": "gather_distances",
-        "route": "cuda",
-        "source": "hannoy_tpu_torch/csrc/gather_distances.cu",
-        "replaces": "hannoy_tpu/ops/beam_pallas.py:108",
-        "launches": main_launches,
-        "shape": head["shape"],
-        "max_abs_err": head["max_abs_err"],
-        "ms": head["ms"],
-        "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"],
-        "bound_by": head["bound_by"],
-        "library_ms": None,  # no single PyTorch call gathers and reduces
-        "cases": cases,
-        "paths": {"wave_build": waves, "default_build": default, "api_path": api},
-    }]}
+        if c["form"].startswith("f32/"):
+            key = f"{c['shape'][0]}x{c['shape'][1]}"
+            for path, res in (("wave_build", waves), ("default_build", default)):
+                c[f"launches_{path}"] = res["build_launches_by_shape"].get(key, 0) + res["search_launches_by_shape"].get(key, 0)
+            c["launches_api_path"] = sum(step.get(key, 0) for step in api["launches_by_shape"].values())
+
+    # one entry per form; its headline is the timed case of the metric the
+    # main path drives in that form, at the shape it launches most
+    driven = {"dot": "cosine", "difference": "euclidean", "popcount": "binary quantized cosine"}
+    entries = []
+    for form in sorted({c["form"] for c in cases}):
+        main = MAIN_PATH.get(form, {"launches": 0, "by_shape": {}})
+        if main["launches"] == 0:
+            raise AssertionError(f"the main path (phases 5-8) never launched the kernel's {form} form: {MAIN_PATH}")
+        own = [c for c in cases if c["form"] == form]
+        for c in own:
+            c["launches_main_path"] = main["by_shape"].get(f"{c['shape'][0]}x{c['shape'][1]}", 0)
+        head = max((c for c in own if c["metric"] == driven[form.split("/")[1]]), key=lambda c: c["launches_main_path"])
+        print(f"form {form}: {main['launches']} launches on the main path {json.dumps(main['by_shape'])}; headline "
+              f"{head['metric']} {head['shape']}: {head['ms']:.5f} ms, bound {head['bound_ms']:.5f} ms", flush=True)
+        entries.append({
+            "name": f"gather_distances[{form}]",
+            "route": "cuda",
+            "source": "hannoy_tpu_torch/csrc/gather_distances.cu",
+            "replaces": "hannoy_tpu/ops/beam_pallas.py:108",
+            "launches": main["launches"],
+            "launches_by_shape": main["by_shape"],
+            "shape": head["shape"],
+            "max_abs_err": head["max_abs_err"],
+            "ms": head["ms"],
+            "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"],
+            "library_ms": None,  # no single PyTorch call gathers and reduces
+        })
+    # everything measured, on one line of its own ahead of the closing
+    # three (which stay short): every timed case and every path's record
+    print("detail " + json.dumps({"cases": cases, "paths": {
+        "wave_build": waves, "default_build": default, "api_path": api, "packed_path": packed, "tier_path": tiers}}))
+    kernels = {"kernels": entries}
     print(card_line())
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

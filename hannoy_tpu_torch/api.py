@@ -21,13 +21,15 @@ by either package opens in the other.
 
 A ``Database`` carries the device its Writers build on and its Readers
 serve from (``device="cuda"`` unless the caller says otherwise; nothing
-probes for a card). Readers hold the index in device memory and answer
+probes for a card), and the storage tier its rows are held in there
+(``tier="raw"`` f32, ``"bf16"`` or ``"int8"``; files on disk do not depend
+on it). Readers hold the index in device memory and answer
 batched queries (``by_vecs``); single-query calls are a batch of one, and
 each search brings its result to the host in one transfer.
 
 Not ported yet (ROADMAP.md queue 1; the names are absent, not stubs):
 the candidates filter and linear scan, by-item search, cancellation,
-builds that repair deleted items, and conversion between metrics.
+and builds that repair deleted items.
 """
 
 from __future__ import annotations
@@ -84,10 +86,8 @@ DEFAULT_EF_SEARCH = 100  # reader.rs:23
 
 
 class Metric(enum.Enum):
-    """Distance metrics (reference ``PyDistance``, python.rs:25-56). All
-    seven names exist so that ``Metadata.distance`` strings agree with the
-    JAX package; the packed ones raise ``NotImplementedError`` at
-    ``distances.check_supported`` until they are ported."""
+    """Distance metrics (reference ``PyDistance``, python.rs:25-56); the
+    ``Metadata.distance`` strings are the JAX package's."""
 
     COSINE = "cosine"
     EUCLIDEAN = "euclidean"
@@ -185,9 +185,15 @@ class Database:
         *,
         backend: str = "native",
         device: str | torch.device = "cuda",
+        tier: str = "raw",
     ):
         """``device``: where this database's Writers build and its Readers
         serve (``"cuda"`` by default; pass ``"cpu"`` to run without a card).
+
+        ``tier``: how the rows of an f32 metric are held on the device, by
+        Writers (builds run on the tier's distances) and Readers alike:
+        ``"raw"`` f32, ``"bf16"`` or ``"int8"`` (``models.hnsw.to_device``).
+        Packed metrics ignore it; the store always keeps f32 rows.
 
         ``backend``: the store engine, ``"native"`` (C++, built with g++ at
         first use) or ``"python"``; both write the same files.
@@ -196,7 +202,10 @@ class Database:
         coexists with a live writer in ANOTHER process (LMDB's concurrent
         readers, reference README.md:13 + parallel.rs:19-31): Readers work,
         any write raises, and ``refresh()`` adopts commits made since open."""
+        if tier not in _hnsw.TIERS:
+            raise InvalidConfig(f"tier must be one of {_hnsw.TIERS}, got {tier!r}")
         self._device = torch.device(device)
+        self._tier = tier
         self._env = _shared_env(
             str(path), map_size or env_size or DEFAULT_ENV_SIZE, readonly=readonly, backend=backend
         )
@@ -288,6 +297,18 @@ class Database:
     def device(self) -> torch.device:
         return self._device
 
+    @property
+    def tier(self) -> str:
+        return self._tier
+
+    def _with_metric(self, metric: Metric) -> "Database":
+        """A handle on the same environment, device and tier under another
+        metric (``Writer.prepare_changing_distance``)."""
+        other = Database.__new__(Database)
+        other.__dict__.update(self.__dict__)
+        other._metric = metric
+        return other
+
 
 class HannoyBuilder:
     """Fluent build configuration (reference ``HannoyBuilder``,
@@ -316,8 +337,8 @@ class HannoyBuilder:
 
     def bulk(self, enabled: Optional[bool]) -> "HannoyBuilder":
         """Force the cluster-blocked fresh-build path on/off
-        (None = auto — large fresh dot-metric builds use it; see
-        build/bulk.py)."""
+        (None = auto — large fresh builds of every metric but f32
+        manhattan use it; see build/bulk.py)."""
         self._opts.bulk = enabled
         return self
 
@@ -594,7 +615,7 @@ class Writer:
             # persisted rows carry ids only: recompute the link distances
             # on the device and bring them back to the host mirror
             with span("load_to_device"):
-                dev = _hnsw.to_device(g, self._database._device)
+                dev = _hnsw.to_device(g, self._database._device, tier=self._database._tier)
             with span("fill_link_dists"):
                 dev = wave_ops.fill_link_dists(dev, g)
             with span("load_from_device"):
@@ -615,7 +636,7 @@ class Writer:
             ):
                 _builder.build_graph(
                     plan.g, plan.insert_slots, plan.delete_slots, opts, stats,
-                    device=self._database._device,
+                    device=self._database._device, tier=self._database._tier,
                 )
 
         with span("build_epilogue"):
@@ -788,6 +809,85 @@ class Writer:
         db.delete(wtxn, Key.metadata(self._index).to_bytes())
         return self._build(opts, m=m, m0=m0)
 
+    def prepare_foreign_conversion(self) -> int:
+        """Dumpless conversion of a foreign/legacy index sharing this key
+        space (reference ``prepare_arroy_conversion``, writer.rs:292-354):
+        keep every decodable item record with the right on-store width,
+        journal it as Updated so the next build relinks it, and delete
+        every other entry (stale links, foreign metadata, trees).
+
+        Returns the number of items scheduled for (re)indexing.
+        """
+        wtxn = self._database._wtxn()
+        db = self._database._db
+        self._purge_staging(wtxn)
+        codec = self._metric.codec
+        on_disk = codecs.padded_dim(self._dimensions, codec)
+        row_bytes = on_disk * 4 if codec == codecs.F32 else on_disk // 8
+        n = 0
+        for key, val in list(db.prefix_iter(wtxn, Prefix.all(self._index))):
+            k = Key.from_bytes(key)
+            keep = False
+            if k.mode == NodeMode.ITEM:
+                try:
+                    _, vecb = decode_item(val)
+                    keep = len(vecb) == row_bytes
+                except Exception:
+                    keep = False
+            if keep:
+                db.put(
+                    wtxn,
+                    Key.updated(self._index, k.item).to_bytes(),
+                    encode_update_status(UpdateStatus.UPDATED),
+                )
+                n += 1
+            else:
+                db.delete(wtxn, key)
+        self._database._env._graph_cache.pop(self._cache_key, None)
+        return n
+
+    def prepare_changing_distance(self, new_metric: Metric) -> "Writer":
+        """Re-own all items under a new metric (writer.rs:358-410); links
+        survive only for the plain→binary-quantized fast path."""
+        wtxn = self._database._wtxn()
+        db = self._database._db
+        self._purge_staging(wtxn)
+        old = self._metric
+        new = new_metric.distance
+        if new.name != old.name:
+            bq_fast_path = new.name == f"binary quantized {old.name}"
+            if not bq_fast_path:
+                for key, _ in list(db.prefix_iter(wtxn, Prefix.links(self._index))):
+                    db.delete(wtxn, key)
+                db.delete(wtxn, Key.metadata(self._index).to_bytes())
+            for key, val in list(db.prefix_iter(wtxn, Prefix.item(self._index))):
+                k = Key.from_bytes(key)
+                _, vecb = decode_item(val)
+                vec = codecs.unpack(
+                    codecs.vector_from_bytes(vecb, old.codec)[None, :],
+                    self._dimensions,
+                    old.codec,
+                )[0]
+                packed = codecs.pack(vec[None, :], new.codec)
+                norm = distances.np_norms(new, packed)[0]
+                db.put(
+                    wtxn,
+                    key,
+                    encode_item(
+                        struct.pack("<f", float(norm)), codecs.vector_to_bytes(vec, new.codec)
+                    ),
+                )
+                db.put(
+                    wtxn,
+                    Key.updated(self._index, k.item).to_bytes(),
+                    encode_update_status(UpdateStatus.UPDATED),
+                )
+            self._database._env._graph_cache.pop(self._cache_key, None)
+        return Writer(
+            self._database._with_metric(new_metric),
+            self._index, self._dimensions, self._m, self._m0, self._ef_construction,
+        )
+
 
 class QueryBuilder:
     """Search options (reference ``QueryBuilder``, reader.rs:60-261)."""
@@ -834,7 +934,7 @@ class Reader:
         self._graph = graph
         # serve_only: readers never consult link distances — skip their upload
         with span("reader_to_device", items=len(metadata.items)):
-            self._dev = _hnsw.to_device(graph, database._device, serve_only=True)
+            self._dev = _hnsw.to_device(graph, database._device, serve_only=True, tier=database._tier)
         self._rtxn = database._env.read_txn()
         self._metric = database.metric.distance
 
@@ -939,6 +1039,8 @@ class Reader:
         packed = codecs.pack(queries, self._metric.codec)
         norms = distances.np_norms(self._metric, packed)
         device = self._database._device
+        if self._metric.is_packed:
+            packed = distances.as_lanes(packed)  # the device holds lanes as int32
         return (
             torch.from_numpy(np.ascontiguousarray(packed)).to(device),
             torch.from_numpy(np.ascontiguousarray(norms)).to(device),

@@ -9,7 +9,8 @@ connect in ``bulk.py``; all distance work runs on the device given to
 Options outside the ported paths raise ``NotImplementedError`` rather
 than being substituted (see ``_check_supported``): deletions and repair,
 link slack, chain seeding, ``beam_expand > 1``, ``traverse`` and in-wave
-cancellation are not ported yet (ROADMAP.md queue 1). The bulk path runs
+cancellation are not ported yet (ROADMAP.md queue 1). Every metric and
+storage tier builds (``build_graph(tier=)``). The bulk path runs
 with the JAX package's default knobs, kept as constants here and in
 ``bulk.py``.
 """
@@ -24,7 +25,7 @@ import torch
 
 from ..models import hnsw
 from ..models.hnsw import DeviceGraph, HostGraph
-from ..ops import beam, distances
+from ..ops import beam
 from ..utils.progress import BuildStep, InsertItemsStep, NoProgress
 from ..utils.stats import BuildStats
 from ..utils.tracing import span
@@ -103,15 +104,15 @@ class BuildOptions:
     #: candidate-pool width for those exact routing-layer candidates
     upper_flat_pool: int = 384
     # ---- bulk (cluster-blocked) fresh-build path — see build/bulk.py ----
-    #: None = auto (fresh cosine/euclidean builds of >= bulk_threshold
-    #: items); True forces it for any eligible fresh build; False disables
+    #: None = auto (fresh builds of >= bulk_threshold items, every metric
+    #: but f32 manhattan); True forces it for any eligible fresh build; False disables
     bulk: Optional[bool] = None
     bulk_threshold: int = 8192
 
 
 def _check_supported(g: HostGraph, deleted_slots: np.ndarray, opts: BuildOptions) -> None:
-    """Raise ``NotImplementedError`` for anything this port does not build."""
-    distances.check_supported(g.metric)
+    """Raise ``NotImplementedError`` for anything this port does not build
+    (every metric and storage tier is built)."""
     if len(deleted_slots):
         raise NotImplementedError("deletions and repair are not ported yet (ROADMAP.md queue 1)")
     for name, value, default in (
@@ -263,13 +264,18 @@ def build_graph(
     stats: Optional[BuildStats] = None,
     *,
     device,
+    tier: str = "raw",
 ) -> BuildStats:
     """Run a build of the staged items on ``device``.
 
-    Large fresh cosine/euclidean builds take the bulk path
-    (``bulk.eligible``): the level >= 1 items are inserted first by waves
-    (the navigability backbone), then ``bulk.bulk_build`` connects the
-    level-0 items. Every other build inserts all items by waves.
+    Large fresh builds of every metric but f32 manhattan take the bulk
+    path (``bulk.eligible``): the level >= 1 items are inserted first by
+    waves (the navigability backbone), then ``bulk.bulk_build`` connects
+    the level-0 items. Every other build inserts all items by waves.
+
+    ``tier``: the storage tier the build's device rows are held in
+    (``hnsw.to_device``); the graph is then built on the distances its
+    readers will see.
 
     Preconditions: vectors/norms for ``insert_slots`` are staged in ``g``.
     Raises ``NotImplementedError`` for what the port does not build yet.
@@ -280,7 +286,7 @@ def build_graph(
 
     slots, lvls, active, exists_ok = plan_build(g, insert_slots, deleted_slots, opts, stats)
 
-    dev = hnsw.to_device(g, device)
+    dev = hnsw.to_device(g, device, tier=tier)
     dev.valid = torch.tensor(active, device=device)
     # beam traversal may seed/visit anything that exists
     node_ok = torch.tensor(exists_ok, device=device)

@@ -1,8 +1,8 @@
 """Bulk cluster-blocked construction — the fresh-build path for large indexes.
 
 Counterpart of ``hannoy_tpu/build/bulk.py``, which the JAX package takes
-by default for fresh cosine or euclidean builds of ``bulk_threshold``
-items or more (``eligible``). Instead of inserting items, it builds layer
+by default for fresh builds of ``bulk_threshold`` items or more under
+every metric but f32 manhattan (``eligible``). Instead of inserting items, it builds layer
 0 from dense, matrix-product-shaped work:
 
 1. **candidates**: exact kNN over all members up to ``BRUTE_MAX``
@@ -25,12 +25,22 @@ backbone), and only the level-0 items are connected here.
 Only layer 0 is built here, with the JAX package's default knobs as the
 constants below: its bulk-built upper layers (``bulk_upper``), slot
 renumbering, random k-means init and the cancellable connect are not
-ported (``builder._check_supported`` raises for a cancel). The packed metrics
-wait for the storage tiers. The top-K is exact where the JAX package uses
-``lax.approx_max_k`` (exact off the TPU as well). Sums that the JAX
-package takes as one-hot products stay products here: a scatter-add of
-floats on CUDA sums in a different order on every run, and the build is
-deterministic.
+ported (``builder._check_supported`` raises for a cancel). The top-K is
+exact where the JAX package uses ``lax.approx_max_k`` (exact off the TPU
+as well). Sums that the JAX package takes as one-hot products stay
+products here: a scatter-add of floats on CUDA sums in a different order
+on every run, and the build is deterministic.
+
+Packed metrics cluster in the unpacked {0, 1} space: centroids are
+continuous bit-probability vectors (f32 ``[C, D_pad]``) and the assignment
+is by squared euclidean distance, which every packed metric is monotone
+in; their candidate blocks take popcounts from products of unpacked bits
+(``distances.block_distances``, ``packed_matrix_mxu``). Rows of a storage
+tier cluster as the f32 values of what is stored (bf16 values, int8
+codes), as in the JAX package; the cluster centroids for the adjacency
+stay f32 and are compared by the metric's f32 formula (the JAX package
+casts them to the rows' type, which leaves every euclidean int8 centroid
+with scale 0).
 """
 
 from __future__ import annotations
@@ -72,8 +82,8 @@ RAND_CANDIDATES = 8
 #: build, and a mildly diverse prune restores navigability
 BULK_ALPHA = 1.1
 
-#: metrics the JAX package's dense block path supports (f32 manhattan
-#: stays on the wave path; the packed metrics are not ported yet)
+#: metrics the dense block path supports (f32 manhattan would
+#: materialise [G, S, T, D] and stays on the wave path)
 BULK_METRICS = (
     "cosine",
     "euclidean",
@@ -121,6 +131,13 @@ def _fit_rows(t: torch.Tensor, rows: int, fill) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 
+def _member_rows(dev: DeviceGraph, slots: torch.Tensor) -> torch.Tensor:
+    """The rows of ``slots`` in the space the partition works in → f32:
+    unpacked {0, 1} bits for the packed codecs, else the stored values."""
+    raw = dev.vectors[_ix(slots)]
+    return distances.unpack_bits(raw) if dev.metric.is_packed else raw.to(torch.float32)
+
+
 def _centroid_norms(metric: distances.Metric, centroids: torch.Tensor) -> torch.Tensor:
     if metric.name == "cosine":
         return (centroids * centroids).sum(-1).sqrt()
@@ -136,8 +153,7 @@ def _one_hot_sums(x: torch.Tensor, assign: torch.Tensor, ok: torch.Tensor, n_clu
 
 
 def _kmeans_step(
-    metric: distances.Metric,
-    vectors: torch.Tensor,
+    dev: DeviceGraph,
     member_slots: torch.Tensor,  # [n_pad] (-1 padded to the chunk)
     centroids: torch.Tensor,  # [C, D]
     chunk: int = KMEANS_CHUNK,
@@ -145,20 +161,22 @@ def _kmeans_step(
     """One Lloyd iteration → (new centroids, assignment [n_pad], -1 on
     padding). The assignment keeps only the terms that vary with the
     centroid and takes the products on bf16-rounded rows (``BULK_BF16``):
-    cosine by ``-dot / |c|``, euclidean by ``|c|² - 2·dot``. Empty clusters
-    keep their previous centroid."""
+    cosine by ``-dot / |c|``, euclidean by ``|c|² - 2·dot``; the packed
+    codecs by ``|c|² - 2·dot`` over unpacked bits and unrounded centroids.
+    Empty clusters keep their previous centroid."""
+    metric = dev.metric
     C, D = centroids.shape
     cn = _centroid_norms(metric, centroids)
     c2 = (centroids * centroids).sum(-1)
-    cb = distances.bf16_round(centroids)
-    sums = torch.zeros((C, D), dtype=torch.float32, device=vectors.device)
-    counts = torch.zeros(C, dtype=torch.float32, device=vectors.device)
-    assign = torch.full(member_slots.shape, NO_ID, dtype=torch.int32, device=vectors.device)
+    cb = centroids if metric.is_packed else distances.bf16_round(centroids)
+    sums = torch.zeros((C, D), dtype=torch.float32, device=dev.device)
+    counts = torch.zeros(C, dtype=torch.float32, device=dev.device)
+    assign = torch.full(member_slots.shape, NO_ID, dtype=torch.int32, device=dev.device)
     for p0 in range(0, member_slots.shape[0], chunk):
         sl = member_slots[p0 : p0 + chunk]
         ok = sl >= 0
-        x = vectors[_ix(sl)]
-        dots = distances.bf16_round(x) @ cb.T
+        x = _member_rows(dev, sl)
+        dots = (x if metric.is_packed else distances.bf16_round(x)) @ cb.T
         if metric.name == "cosine":
             d = -dots / cn.clamp(min=float(distances._EPS))[None, :]
         else:
@@ -208,7 +226,7 @@ def kmeans_partition(
     slots_pad = torch.tensor(_pad_to(member_slots.astype(np.int32), KMEANS_CHUNK, NO_ID), device=dev.device)
     S = min(n, max(INIT_SAMPLE, 8 * n_clusters))
     sample = member_slots[rng.choice(n, size=S, replace=False)]
-    sv = dev.vectors[torch.tensor(sample, dtype=torch.int64, device=dev.device)]
+    sv = _member_rows(dev, torch.tensor(sample, dtype=torch.int64, device=dev.device))
     geom = sv
     if metric.name == "cosine":
         geom = sv / (sv * sv).sum(-1).sqrt().clamp(min=1e-30)[:, None]
@@ -217,19 +235,21 @@ def kmeans_partition(
     del geom, sv
     assign = None
     for _ in range(max(1, iters)):
-        centroids, assign = _kmeans_step(metric, dev.vectors, slots_pad, centroids)
+        centroids, assign = _kmeans_step(dev, slots_pad, centroids)
     return assign[:n].cpu().numpy()
 
 
 def _segment_centroids(dev: DeviceGraph, member_slots: np.ndarray, assign: np.ndarray, n_clusters: int) -> torch.Tensor:
-    """Mean vector of each cluster → [C, D] (0 for an empty cluster)."""
-    sums = torch.zeros((n_clusters, dev.vectors.shape[1]), dtype=torch.float32, device=dev.device)
+    """Mean vector of each cluster, in the partition's space
+    (``_member_rows``) → f32 [C, D] (0 for an empty cluster)."""
+    width = dev.vectors.shape[1] * (distances.codecs.LANE_BITS if dev.metric.is_packed else 1)
+    sums = torch.zeros((n_clusters, width), dtype=torch.float32, device=dev.device)
     counts = torch.zeros(n_clusters, dtype=torch.float32, device=dev.device)
     slots = torch.tensor(member_slots, dtype=torch.int64, device=dev.device)
     a_all = torch.tensor(assign, dtype=torch.int64, device=dev.device)
     for p0 in range(0, len(member_slots), KMEANS_CHUNK):
         sl = slots[p0 : p0 + KMEANS_CHUNK]
-        s, n = _one_hot_sums(dev.vectors[sl], a_all[p0 : p0 + KMEANS_CHUNK], sl >= 0, n_clusters)
+        s, n = _one_hot_sums(_member_rows(dev, sl), a_all[p0 : p0 + KMEANS_CHUNK], sl >= 0, n_clusters)
         sums += s
         counts += n
     return sums / counts.clamp(min=1.0)[:, None]
@@ -249,11 +269,13 @@ def _brute_candidates(dev: DeviceGraph, member_slots: np.ndarray, K: int, chunk:
     mvec, mnrm = dev.vectors[_ix(slots)], dev.norms[_ix(slots)]
     col_ok = slots >= 0
     cols = torch.arange(n_pad, device=dev.device)
+    # at most BRUTE_MAX packed members: popcounts from one product (exact)
+    member_distances = distances.packed_matrix_mxu if metric.is_packed else distances.matrix_distances
     out_ids = torch.full((n_pad, K), NO_ID, dtype=torch.int32, device=dev.device)
     out_d = torch.full((n_pad, K), INF, device=dev.device)
     for p0 in range(0, n_pad, chunk):
         sl = slots[p0 : p0 + chunk]
-        d = distances.matrix_distances(metric, mvec[p0 : p0 + chunk], mnrm[p0 : p0 + chunk], mvec, mnrm)
+        d = member_distances(metric, mvec[p0 : p0 + chunk], mnrm[p0 : p0 + chunk], mvec, mnrm)
         d = torch.where(col_ok[None, :], d, INF)
         d = torch.where(cols[None, :] == (p0 + torch.arange(sl.shape[0], device=d.device))[:, None], INF, d)
         cd, idx = topk.smallest_k(d, K)
@@ -287,7 +309,10 @@ def _pseudo_cluster_tables(assign: np.ndarray, n_clusters: int, s_cap: int) -> t
 def _cluster_adjacency(metric: distances.Metric, centroids: torch.Tensor, parent: np.ndarray, A: int) -> np.ndarray:
     """The A nearest pseudo-clusters of each pseudo-cluster, itself
     included → [Cp, A] (ties toward the lower index: siblings share a
-    centroid)."""
+    centroid). Packed centroids are bit-probability vectors, compared by
+    the euclidean proxy that every packed metric is monotone in."""
+    if metric.is_packed:
+        metric = distances.EUCLIDEAN
     pc = centroids[torch.tensor(parent, dtype=torch.int64, device=centroids.device)]
     pn = _centroid_norms(metric, pc)
     d = distances.matrix_distances(metric, pc, pn, pc, pn)

@@ -162,7 +162,10 @@ def wave_insert_level(
 
     if flat_members is not None:
         mem = _ix(flat_members)
-        d_mat = distances.matrix_distances(metric, q, qn, g.vectors[mem], g.norms[mem])
+        # packed rows: the table is bounded, so the popcounts ride one
+        # matrix product over unpacked bits (exact)
+        table_distances = distances.packed_matrix_mxu if metric.is_packed else distances.matrix_distances
+        d_mat = table_distances(metric, q, qn, g.vectors[mem], g.norms[mem])
         if flat_col_order is not None:
             row_ord = flat_row_base + torch.arange(W, device=q.device)
             ok_col = flat_col_order[None, :] < row_ord[:, None]

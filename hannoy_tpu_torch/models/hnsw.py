@@ -2,8 +2,11 @@
 
 Counterpart of ``hannoy_tpu/models/hnsw.py``:
 
-* item vectors → one ``[N_pad, D]`` f32 tensor plus a ``[N_pad]`` norm
-  header;
+* item vectors → one ``[N_pad, D*]`` tensor plus a ``[N_pad]`` norm
+  header: f32 rows, or the ``bf16`` / ``int8`` storage tier of an f32
+  metric (``to_device(tier=)``), or the packed codecs' lanes as int32
+  (``ops.distances``); the host mirror and the store keep f32 rows (or
+  uint32 lanes), so files on disk do not depend on the tier;
 * link rows → fixed-width ``int32`` neighbor tables with sentinel ``-1``:
   layer 0 is slot-indexed ``[N_pad, M0]``; upper layers are compact
   ``[L, U_pad, M]`` tables plus a per-level ``slot → row`` map;
@@ -16,8 +19,9 @@ builds. Unlike the JAX package, ``from_device`` keeps them in f32.
 ``HostGraph.load`` / ``flush_links`` read and write the store's links
 records (ids only; ``wave_ops.fill_link_dists`` restores the distances on
 the device). Every ``to_device`` uploads the vectors anew: the JAX
-package's device vector cache is not ported, nor are ``permute*`` and the
-bf16/int8 storage tiers (ROADMAP.md).
+package's device vector cache is not ported, nor are ``permute*``
+(ROADMAP.md). The JAX package selects the storage tier by environment
+variables; here it is an argument.
 """
 
 from __future__ import annotations
@@ -516,8 +520,8 @@ class DeviceGraph:
     leading dims. Builders update the tables in place.
     """
 
-    vectors: torch.Tensor  # [N_pad, D] f32
-    norms: torch.Tensor  # [N_pad] f32
+    vectors: torch.Tensor  # [N_pad, D*] f32 | bf16 | int8 | int32 lanes
+    norms: torch.Tensor  # [N_pad] f32 (int8 tier: 127 or the row's scale)
     links0: torch.Tensor  # [N_pad, M0] i32
     dists0: torch.Tensor  # [N_pad, M0] f32 ([1, 1] placeholder when serve-only)
     upper_links: torch.Tensor  # [L, U_pad, M] i32
@@ -560,6 +564,50 @@ def _t(arr: np.ndarray, device) -> torch.Tensor:
     return torch.tensor(np.asarray(arr), device=device)
 
 
+TIERS = ("raw", "bf16", "int8")
+
+
+def _rows_to_device(rows, device) -> torch.Tensor:
+    """Host rows of any device row type → a device tensor of that type
+    (bf16 rows come as a torch tensor, or as numpy's extension type)."""
+    if isinstance(rows, torch.Tensor):
+        return rows.to(device)
+    rows = np.asarray(rows)
+    if rows.dtype == np.uint32:
+        return _t(distances.as_lanes(rows), device)
+    if rows.dtype.name == "bfloat16":
+        return _t(np.ascontiguousarray(rows).view(np.int16), device).view(torch.bfloat16)
+    if rows.dtype in (np.int8, np.int32):
+        return _t(rows, device)
+    return _t(np.asarray(rows, dtype=np.float32), device)
+
+
+def encode_tier(metric: distances.Metric, vecs: np.ndarray, norms: np.ndarray, tier: str):
+    """Host rows and norm headers → (rows, headers) as the device holds
+    them under ``tier`` (the JAX package's encoders; rows come back as
+    numpy, bf16 as a torch tensor since numpy has no such type).
+
+    * ``int8``, cosine: ``round(127·v/|v|)`` with header 127, the length
+      of the stored row (0 for a zero row, so the cosine guard still
+      gives distance 0);
+    * ``int8``, euclidean / manhattan: ``round(127·v/max|v_i|)`` with the
+      row's scale ``max|v_i|/127`` in the header (``distances._deq``);
+    * ``bf16``: a cast, headers unchanged.
+    """
+    if tier == "int8":
+        if metric.name == "cosine":
+            mags = np.linalg.norm(vecs, axis=-1, keepdims=True)
+            header = np.where(mags[:, 0] > 1e-30, np.float32(127.0), np.float32(0.0))
+        else:
+            mags = np.abs(vecs).max(axis=-1, keepdims=True)
+            header = np.where(mags[:, 0] > 1e-30, mags[:, 0] / np.float32(127.0), 0.0).astype(np.float32)
+        unit = np.divide(vecs, mags, out=np.zeros_like(vecs), where=mags > 1e-30)
+        return np.clip(np.rint(127.0 * unit), -127, 127).astype(np.int8), header
+    if tier == "bf16":
+        return torch.from_numpy(np.ascontiguousarray(vecs)).to(torch.bfloat16), norms
+    return vecs, norms
+
+
 def device_graph_from_arrays(
     device,
     *,
@@ -577,9 +625,11 @@ def device_graph_from_arrays(
 ) -> DeviceGraph:
     """A ``DeviceGraph`` on ``device`` from another implementation's
     device state as numpy arrays (the fields of the JAX package's
-    ``DeviceGraph``)."""
+    ``DeviceGraph``). ``vectors`` keep their row type: float32, int8,
+    bfloat16 (numpy's extension type, taken by its bits), or uint32 lanes
+    (held as int32, see ``ops.distances``)."""
     return DeviceGraph(
-        vectors=_t(np.asarray(vectors, dtype=np.float32), device),
+        vectors=_rows_to_device(vectors, device),
         norms=_t(np.asarray(norms, dtype=np.float32), device),
         links0=_t(np.asarray(links0, dtype=np.int32), device),
         dists0=_t(np.asarray(dists0, dtype=np.float32), device),
@@ -593,13 +643,18 @@ def device_graph_from_arrays(
     )
 
 
-def to_device(g: HostGraph, device, serve_only: bool = False) -> DeviceGraph:
-    """Copy a host graph into device tensors on ``device`` (raw f32 rows).
+def to_device(g: HostGraph, device, serve_only: bool = False, tier: str = "raw") -> DeviceGraph:
+    """Copy a host graph into device tensors on ``device``.
 
     ``serve_only``: search never reads link distances, so readers upload
     ``[1, 1]`` placeholders for ``dists0``/``upper_dists``.
+
+    ``tier``: how the rows of an f32 metric are held on the device —
+    ``"raw"`` f32, ``"bf16"`` (half the bytes) or ``"int8"`` (a quarter;
+    ``encode_tier``). Packed metrics are always ``"raw"`` (their lanes).
     """
-    distances.check_supported(g.metric)
+    if tier not in TIERS:
+        raise ValueError(f"tier must be one of {TIERS}, got {tier!r}")
     n_layers = len(g.upper_links)
     if n_layers:
         u_pad = max(a.shape[0] for a in g.upper_links)
@@ -621,10 +676,11 @@ def to_device(g: HostGraph, device, serve_only: bool = False) -> DeviceGraph:
         dists0, ud = np.zeros((1, 1), np.float32), np.zeros((1, 1, 1), np.float32)
     else:
         dists0 = g.dists0
+    rows, headers = encode_tier(g.metric, g.vectors, g.norms, "raw" if g.metric.is_packed else tier)
     return device_graph_from_arrays(
         device,
-        vectors=g.vectors,
-        norms=g.norms,
+        vectors=rows,
+        norms=headers,
         links0=g.links0,
         dists0=dists0,
         upper_links=up,

@@ -74,7 +74,10 @@ def candidate_distances(
     g: DeviceGraph, q: torch.Tensor, qn: torch.Tensor, nbs: torch.Tensor
 ) -> torch.Tensor:
     """Distances from queries [B] to candidate slots [B, K] — the per-hop
-    hot op (entries at -1 read row 0; callers mask them)."""
+    hot op (entries at -1 read row 0; callers mask them). The store's
+    rows may be f32, a storage tier (bf16, int8) or packed lanes; a
+    search's queries are f32 (or packed lanes), a build's are rows of the
+    store with their headers (``descend_for_slots``)."""
     return beam_cuda.gathered_distances(g.metric, g.vectors, g.norms, q, qn, nbs.contiguous())
 
 

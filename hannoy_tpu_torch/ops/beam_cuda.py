@@ -3,10 +3,13 @@
 Counterpart of ``hannoy_tpu/ops/beam_pallas.py``. The hot op of both
 search and construction fetches, for each query, the rows of its current
 candidates from the vector store and reduces them against the query.
-``csrc/gather_distances.cu`` does that in one launch, cosine epilogue
-included, reading each candidate row once; ``gathered_distances_plain``
-is the same function in plain PyTorch (a gather that materialises
-``[B, K, D]``, then ``distances.gathered_distances``).
+``csrc/gather_distances.cu`` does that in one launch, epilogue included,
+reading each candidate row once, for every row type of the package: f32,
+the bf16 and int8 storage tiers, and the packed lanes of hamming and the
+binary quantized metrics (the Pallas kernel takes f32 rows only; the JAX
+package leaves the others to XLA). ``gathered_distances_plain`` is the
+same function in plain PyTorch (a gather that materialises
+``[B, K, D*]``, then ``distances.gathered_distances``).
 
 ``gathered_distances`` dispatches on where the tensors lie: CPU tensors
 take the plain twin, CUDA tensors launch the kernel or raise. There is no
@@ -14,8 +17,11 @@ fallback from one to the other.
 
 The kernel is built at first use with ``nvcc`` for ``sm_90a`` into
 ``hannoy_tpu_torch/_build/``, keyed by a hash of the source, and loaded
-with ``ctypes``. ``KERNEL.launches`` counts the launches, and
-``KERNEL.by_shape`` counts them per ``(B, K)``.
+with ``ctypes``. ``KERNEL.launches`` counts the launches,
+``KERNEL.by_shape`` counts them per ``(B, K)`` and ``KERNEL.by_form`` per
+form: ``(row type, family)`` with row type ``f32`` / ``bf16`` / ``int8`` /
+``packed`` and family ``dot`` (cosine), ``difference`` (euclidean,
+manhattan) or ``popcount`` (the packed metrics).
 """
 
 from __future__ import annotations
@@ -35,7 +41,13 @@ from . import distances
 _PKG = Path(__file__).resolve().parents[1]
 SOURCE = _PKG / "csrc" / "gather_distances.cu"
 BUILD_DIR = _PKG / "_build"
-METRIC_IDS = {"cosine": 0, "euclidean": 1, "manhattan": 2}
+METRIC_IDS = {
+    "cosine": 0, "euclidean": 1, "manhattan": 2, "hamming": 3,
+    "binary quantized cosine": 4, "binary quantized euclidean": 5, "binary quantized manhattan": 6,
+}
+#: device row type → (name, the kernel's row-type id)
+ROW_TYPES = {torch.float32: ("f32", 0), torch.bfloat16: ("bf16", 1), torch.int8: ("int8", 2)}
+PACKED_ROWS = ("packed", 3)
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -60,6 +72,7 @@ class GatherKernel:
         self.lib = None
         self.launches = 0
         self.by_shape: dict[tuple[int, int], int] = {}
+        self.by_form: dict[tuple[str, str], int] = {}
         #: nvcc's output of the last build (``-Xptxas -v``), "" if cached
         self.build_log = ""
         self.build_seconds = 0.0
@@ -67,6 +80,7 @@ class GatherKernel:
     def reset_counts(self) -> None:
         self.launches = 0
         self.by_shape = {}
+        self.by_form = {}
 
     def library_path(self) -> Path:
         digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
@@ -95,10 +109,7 @@ class GatherKernel:
         if self.lib is None:
             lib = ctypes.CDLL(str(self.build()))
             fn = lib.gather_distances
-            fn.argtypes = [ctypes.c_void_p] * 6 + [
-                ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-            ]
+            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [ctypes.c_int] * 7 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
             self.lib = lib
         return self.lib
@@ -107,17 +118,38 @@ class GatherKernel:
 KERNEL = GatherKernel()
 
 
+def form_of(metric: distances.Metric, row_dtype: torch.dtype) -> tuple[str, str]:
+    """The kernel form that serves ``metric`` on rows of ``row_dtype`` →
+    (row type, family), the key of ``KERNEL.by_form``."""
+    if metric.is_packed:
+        return PACKED_ROWS[0], "popcount"
+    return ROW_TYPES[row_dtype][0], "dot" if metric.name == "cosine" else "difference"
+
+
 def gathered_distances_plain(
     metric: distances.Metric,
-    vectors: torch.Tensor,  # [N, D]
+    vectors: torch.Tensor,  # [N, D*]
     norms: torch.Tensor,  # [N]
-    q: torch.Tensor,  # [B, D]
+    q: torch.Tensor,  # [B, D*]
     qn: torch.Tensor,  # [B]
     idx: torch.Tensor,  # [B, K] (-1 allowed; clamped, caller masks)
 ) -> torch.Tensor:
     """The plain PyTorch twin of the kernel → [B, K] float32."""
     safe = idx.clamp(min=0).long()
     return distances.gathered_distances(metric, q, qn, vectors[safe], norms[safe])
+
+
+def _canonical_query(metric: distances.Metric, vectors: torch.Tensor, q: torch.Tensor, qn: torch.Tensor) -> torch.Tensor:
+    """The one query form the kernel takes for the rows' type: lanes for
+    packed rows, else f32 — a query gathered from a tier store (a build)
+    is upcast, and an int8 one of euclidean / manhattan dequantised by its
+    scale ``qn`` (for cosine on bf16 rows the kernel rounds the query to
+    bf16 values itself, as ``distances.gathered_distances`` does)."""
+    if metric.is_packed:
+        return q
+    if vectors.dtype == torch.int8 and metric.name != "cosine":
+        q = distances._deq(q, qn)
+    return q.to(torch.float32).contiguous()
 
 
 def gathered_distances(
@@ -129,20 +161,30 @@ def gathered_distances(
     idx: torch.Tensor,
 ) -> torch.Tensor:
     """``distances.gathered_distances(metric, q, qn, vectors[idx], norms[idx])``
-    with ``idx < 0`` read as row 0 → [B, K] float32. CPU tensors run the
-    plain twin; CUDA tensors launch the kernel."""
+    with ``idx < 0`` read as row 0 → [B, K] float32, for f32, bf16, int8
+    and packed (int32 lanes) rows. CPU tensors run the plain twin; CUDA
+    tensors launch the kernel or raise."""
     tensors = (vectors, norms, q, qn, idx)
     if all(t.device.type == "cpu" for t in tensors):
         return gathered_distances_plain(metric, vectors, norms, q, qn, idx)
-    name = distances.check_supported(metric)
     dev = vectors.device
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError(f"gathered_distances: tensors on mixed devices {[str(t.device) for t in tensors]}")
-    for t, want in zip(tensors, (torch.float32,) * 4 + (torch.int32,)):
+    if metric.is_packed:
+        _, row_id = PACKED_ROWS
+        row_ok, q_ok = vectors.dtype == torch.int32, q.dtype == torch.int32
+    else:
+        _, row_id = ROW_TYPES.get(vectors.dtype, ("", -1))
+        row_ok, q_ok = row_id >= 0, q.dtype in (torch.float32, vectors.dtype)
+    if not (row_ok and q_ok):
+        raise TypeError(
+            f"gathered_distances: {metric.name} does not take rows of {vectors.dtype} with queries of {q.dtype}"
+        )
+    for t, want in ((norms, torch.float32), (qn, torch.float32), (idx, torch.int32)):
         if t.dtype != want:
             raise TypeError(f"gathered_distances: expected {want}, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError("gathered_distances: inputs must be contiguous")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("gathered_distances: inputs must be contiguous")
     if vectors.dim() != 2 or q.dim() != 2 or idx.dim() != 2:
         raise ValueError("gathered_distances: vectors [N,D], q [B,D], idx [B,K] expected")
     n, d = vectors.shape
@@ -152,19 +194,25 @@ def gathered_distances(
             f"gathered_distances: shape mismatch vectors {tuple(vectors.shape)} norms "
             f"{tuple(norms.shape)} q {tuple(q.shape)} qn {tuple(qn.shape)} idx {tuple(idx.shape)}"
         )
-    vec4 = d % 4 == 0 and vectors.data_ptr() % 16 == 0 and q.data_ptr() % 16 == 0
     out = torch.empty((b, k), dtype=torch.float32, device=dev)
     if b * k == 0:
         return out
+    q = _canonical_query(metric, vectors, q, qn)
+    # 16-byte loads need whole rows of them and aligned bases
+    vec = (d * vectors.element_size()) % 16 == 0 and vectors.data_ptr() % 16 == 0 and q.data_ptr() % 16 == 0
+    scale_rows = vectors.dtype == torch.int8 and metric.name != "cosine"
     lib = KERNEL.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.gather_distances(
             vectors.data_ptr(), norms.data_ptr(), q.data_ptr(), qn.data_ptr(),
-            idx.data_ptr(), out.data_ptr(), n, d, b, k, METRIC_IDS[name], int(vec4), stream,
+            idx.data_ptr(), out.data_ptr(), n, d, b, k, METRIC_IDS[metric.name], row_id,
+            int(vec), int(scale_rows), stream,
         )
     if rc != 0:
         raise RuntimeError(f"gather_distances kernel launch failed: CUDA error {rc}")
     KERNEL.launches += 1
     KERNEL.by_shape[(b, k)] = KERNEL.by_shape.get((b, k), 0) + 1
+    form = form_of(metric, vectors.dtype)
+    KERNEL.by_form[form] = KERNEL.by_form.get(form, 0) + 1
     return out

@@ -21,16 +21,36 @@ from .topk import INF, NO_ID
 
 def pairwise_block(
     metric: distances.Metric,
-    vecs: torch.Tensor,  # [B, K, D]
+    vecs: torch.Tensor,  # [B, K, D*]
     norms: torch.Tensor,  # [B, K]
 ) -> torch.Tensor:
     """All-pairs distances within each row's candidate set → [B, K, K].
 
-    For cosine and euclidean the rows are rounded to bf16 first
+    For cosine and euclidean f32 rows are rounded to bf16 first
     (``distances.BULK_BF16``, as in the JAX package) and multiplied in
     f32, so each product is exact, as bf16×bf16→f32 is on the TPU, and
-    only the summation order differs."""
-    name = distances.check_supported(metric)
+    only the summation order differs. int8 rows are cast (cosine) or
+    dequantised by the scales in ``norms`` (the others); bf16 rows are
+    taken as they are; packed rows take their popcounts from the Gram
+    of their unpacked bits (exact, ``distances.unpack_bits``: the JAX
+    package's fused XOR-popcount over ``[B, K, K, W]`` would run here as
+    a dozen elementwise passes over that block), ``PACKED_CHUNK_ELEMS``
+    unpacked elements at a time."""
+    name = metric.name
+    if metric.is_packed:
+        B, K, W = vecs.shape
+        rows_pc = distances._row_popcounts(vecs)
+        step = max(1, distances.PACKED_CHUNK_ELEMS // max(1, K * W * 32))
+        pc = torch.empty((B, K, K), dtype=torch.float32, device=vecs.device)
+        for b0 in range(0, B, step):
+            bits = distances.unpack_bits(vecs[b0 : b0 + step])
+            dots = torch.bmm(bits, bits.transpose(1, 2))
+            r = rows_pc[b0 : b0 + step]
+            pc[b0 : b0 + step] = r[:, :, None] + r[:, None, :] - 2.0 * dots
+        return distances._packed_from_popcount(name, pc, W * 32, norms[:, :, None] * norms[:, None, :])
+    if vecs.dtype == torch.int8 and name != "cosine":
+        vecs = distances._deq(vecs, norms)
+    vecs = vecs.to(torch.float32)
     if name == "manhattan":
         return torch.cdist(vecs, vecs, p=1.0)
     if distances.BULK_BF16:

@@ -36,6 +36,8 @@ from hannoy_tpu_torch.ops import distances
 from hannoy_tpu_torch.store import schema
 from hannoy_tpu_torch.utils import tracing
 
+pytest_plugins = ("jax_programs",)  # clears JAX's compiled programs between tests: tests/jax_programs.py
+
 torch.set_num_threads(2)
 
 N, D, M, EF = 1500, 32, 8, 32
@@ -338,9 +340,11 @@ def test_unported_names_are_absent():
         (api.Reader, ["by_items", "_brute_force", "_candidate_mask", "_should_linear_scan"]),
         (api.QueryBuilder, ["candidates", "linear_below", "by_item", "by_vector_with_cancellation"]),
         (api.HannoyBuilder, ["cancel"]),
-        (api.Writer, ["prepare_changing_distance", "prepare_foreign_conversion", "release_device_cache"]),
+        (api.Writer, ["release_device_cache"]),
     ):
         assert not [n for n in names if hasattr(cls, n)]
+    # the conversions between metrics are ported (tests/test_torch_packed.py holds them against the JAX Writer)
+    assert all(hasattr(api.Writer, n) for n in ("prepare_changing_distance", "prepare_foreign_conversion"))
     assert list(inspect.signature(api.Reader.by_vecs).parameters) == ["self", "queries", "n", "ef_search"]
 
 

@@ -28,6 +28,8 @@ from hannoy_tpu_torch.build.bulk import bulk_build
 from hannoy_tpu_torch.models import hnsw
 from hannoy_tpu_torch.ops import beam, distances
 
+pytest_plugins = ("jax_programs",)  # clears JAX's compiled programs between tests: tests/jax_programs.py
+
 torch.set_num_threads(2)
 
 N, D, M, M0, EFC, WAVE = 1500, 32, 8, 16, 32, 128

@@ -29,6 +29,8 @@ from hannoy_tpu_torch.models import hnsw
 from hannoy_tpu_torch.ops import beam, distances
 from hannoy_tpu_torch.utils import tracing
 
+pytest_plugins = ("jax_programs",)  # clears JAX's compiled programs between tests: tests/jax_programs.py
+
 torch.set_num_threads(2)
 
 N, D, M, M0, EFC = 6000, 32, 8, 16, 32

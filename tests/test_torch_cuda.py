@@ -70,8 +70,99 @@ def test_kernel_wrapper_rejects_what_it_cannot_take(cuda):
         beam_cuda.gathered_distances(distances.COSINE, x, nrm, q, qn, idx.t())
     with pytest.raises(TypeError):
         beam_cuda.gathered_distances(distances.COSINE, x, nrm, q, qn, idx.long())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):  # a packed metric takes int32 lanes, not f32 rows
         beam_cuda.gathered_distances(distances.HAMMING, x, nrm, q, qn, idx)
+    with pytest.raises(TypeError):  # and an f32 metric no lanes
+        beam_cuda.gathered_distances(distances.COSINE, x.to(torch.int32), nrm, q, qn, idx)
+    with pytest.raises(TypeError):  # an int8 query only on int8 rows
+        beam_cuda.gathered_distances(distances.COSINE, x, nrm, q.to(torch.int8), qn, idx)
+
+
+@pytest.mark.parametrize("dim", [768, 130, 37])
+@pytest.mark.parametrize("query", ["search", "build"])
+@pytest.mark.parametrize("tier", ["bf16", "int8"])
+@pytest.mark.parametrize("name", ["cosine", "euclidean", "manhattan"])
+def test_tier_kernel_forms_match_twin(cuda, name, tier, query, dim):
+    """bf16 and int8 rows, with an f32 query (a search) and with a query
+    gathered from the store (a build; int8: dequantised by its scale).
+    Same rounded inputs on both sides: summation order only."""
+    metric = distances.by_name(name)
+    x, nrm, q, qn, idx = _inputs(21, 3000, dim, 67, 29, name)
+    g = hnsw.HostGraph.empty(metric, dim, 8, 16, capacity=3000)
+    g.vectors[:], g.norms[:] = x.numpy(), nrm.numpy()
+    dev = hnsw.to_device(g, cuda, tier=tier)
+    if query == "build":
+        q, qn = dev.vectors[:67].contiguous(), dev.norms[:67].contiguous()
+    form = beam_cuda.form_of(metric, dev.vectors.dtype)
+    before = beam_cuda.KERNEL.by_form.get(form, 0)
+    got = beam_cuda.gathered_distances(metric, dev.vectors, dev.norms, q.to(cuda), qn.to(cuda), idx.to(cuda))
+    torch.cuda.synchronize()
+    assert beam_cuda.KERNEL.by_form[form] == before + 1 and form[0] == tier
+    want = beam_cuda.gathered_distances_plain(metric, dev.vectors, dev.norms, q.to(cuda), qn.to(cuda), idx.to(cuda))
+    tol = dict(rtol=0, atol=1e-5) if name == "cosine" else dict(rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got, want, **tol)
+
+
+@pytest.mark.parametrize("dim", [768, 200, 37])
+@pytest.mark.parametrize("metric", [m for m in distances.ALL_METRICS if m.is_packed], ids=lambda m: m.name)
+def test_packed_kernel_forms_match_twin(cuda, metric, dim):
+    """Packed lanes: popcounts are integers, so hamming, BQ euclidean and
+    BQ manhattan are bit-equal; the BQ cosine epilogue to one f32 ulp."""
+    from hannoy_tpu_torch.ops import codecs
+
+    rng = np.random.default_rng(22)
+    lanes = codecs.pack(rng.standard_normal((3000, dim)).astype(np.float32), metric.codec)
+    nrm = distances.np_norms(metric, lanes)
+    x, xn = torch.from_numpy(distances.as_lanes(lanes)).to(cuda), torch.from_numpy(nrm).to(cuda)
+    idx = torch.from_numpy(rng.integers(-1, 3000, (67, 29)).astype(np.int32)).to(cuda)
+    idx[5, 7] = 3000  # out of range: NaN
+    q, qn = x[100:167].contiguous(), xn[100:167].contiguous()
+    got = beam_cuda.gathered_distances(metric, x, xn, q, qn, idx)
+    torch.cuda.synchronize()
+    assert torch.isnan(got[5, 7]) and int(torch.isnan(got).sum()) == 1
+    idx[5, 7] = 0
+    got = beam_cuda.gathered_distances(metric, x, xn, q, qn, idx)
+    want = beam_cuda.gathered_distances_plain(metric, x, xn, q, qn, idx)
+    if metric.name == "binary quantized cosine":
+        torch.testing.assert_close(got, want, rtol=0, atol=1.2e-7)
+    else:
+        assert torch.equal(got, want)
+    assert beam_cuda.KERNEL.by_form[("packed", "popcount")] >= 2
+
+
+@pytest.mark.parametrize("metric, tier", [(Metric.BQ_COSINE, "raw"), (Metric.HAMMING, "raw"), (Metric.COSINE, "int8"), (Metric.EUCLIDEAN, "bf16")],
+                         ids=lambda v: getattr(v, "value", v))
+def test_packed_and_tier_api_paths_on_cuda(cuda, tmp_path, metric, tier):
+    """add -> build (bulk) -> commit -> reopen -> search on the card for a
+    packed metric and a tier: the kernel's form for those rows runs, the
+    graph is valid, and every vector finds itself (under a packed metric,
+    where equal codes tie: tie-aware recall@10 against ``flat_topk``)."""
+    from hannoy_tpu_torch.models.flat import flat_topk
+
+    data, _ = _clustered(d=256 if metric.distance.is_packed else 32)
+    beam_cuda.KERNEL.reset_counts()
+    db = Database(tmp_path / "d", metric, tier=tier)
+    w = db.writer(data.shape[1], m=8, ef=32)
+    w.add_items(range(len(data)), data)
+    w.builder(seed=42).bulk(True).build()
+    db.commit_rw_txn()
+    db.close()
+    db = Database(tmp_path / "d", metric, tier=tier)
+    r = db.reader()
+    r.assert_validity()
+    if metric.distance.is_packed:
+        rows = r.by_vecs(data[:200], n=10, ef_search=64)
+        q, qn = r._prep_queries(data[:200])
+        exact_d, _ = flat_topk(metric.distance.name, q, qn, r._dev.vectors, r._dev.norms, r._dev.valid, 10)
+        kth = (exact_d[:, 9] + 1e-6).cpu().numpy()
+        recall = float(np.mean([[d <= kth[b] for _, d in row] for b, row in enumerate(rows)]))
+        assert all(len(row) == 10 for row in rows) and recall >= 0.9, recall
+    else:
+        rows = r.by_vecs(data[:200], n=1, ef_search=64)
+        assert np.mean([row[0][0] == i for i, row in enumerate(rows)]) >= 0.99
+    form = beam_cuda.form_of(metric.distance, r._dev.vectors.dtype)
+    assert beam_cuda.KERNEL.by_form.get(form, 0) > 0 and set(beam_cuda.KERNEL.by_form) == {form}
+    db.close()
 
 
 def test_build_and_search_on_cuda_match_cpu(cuda):

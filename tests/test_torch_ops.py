@@ -23,6 +23,8 @@ from hannoy_tpu.ops import topk as jax_topk
 from hannoy_tpu_torch.models import flat
 from hannoy_tpu_torch.ops import beam_cuda, distances, prune, topk
 
+pytest_plugins = ("jax_programs",)  # clears JAX's compiled programs between tests: tests/jax_programs.py
+
 torch.set_num_threads(2)
 
 F32 = ["cosine", "euclidean", "manhattan"]
@@ -75,10 +77,20 @@ def test_matrix_distances_match_jax(name):
     np.testing.assert_allclose(got, jax_distances.np_pairwise(jm, q, qn, x, nrm), **tol)
 
 
-def test_packed_metrics_raise():
-    x = torch.zeros(4, 2, dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
-        distances.gathered_distances(distances.HAMMING, x, torch.zeros(4), x[:, None], torch.zeros(4, 1))
+@pytest.mark.parametrize("metric", [m for m in distances.ALL_METRICS if m.is_packed], ids=lambda m: m.name)
+def test_packed_metrics_are_ported(metric):
+    """Packed rows (int32 lanes on the device) through the plain
+    gather-distance against numpy's oracle; tests/test_torch_packed.py
+    holds them against the JAX package."""
+    rng = np.random.default_rng(8)
+    lanes = rng.integers(0, 2**32, (6, 3), dtype=np.uint64).astype(np.uint32)
+    nrm = distances.np_norms(metric, lanes)
+    x = torch.from_numpy(distances.as_lanes(lanes))
+    got = distances.gathered_distances(metric, x[:2], torch.from_numpy(nrm[:2]), x[None, :, :].expand(2, -1, -1),
+                                       torch.from_numpy(nrm)[None, :].expand(2, -1))
+    want = distances.np_pairwise(metric, lanes[:2], nrm[:2], lanes, nrm)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1.2e-7)
+    assert not hasattr(distances, "check_supported")
 
 
 @pytest.mark.parametrize("name", F32)

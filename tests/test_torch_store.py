@@ -21,6 +21,8 @@ from hannoy_tpu_torch.store import native_env, schema
 from hannoy_tpu_torch.utils.idset import IdSet
 from hannoy_tpu_torch.version import CURRENT_VERSION
 
+pytest_plugins = ("jax_programs",)  # clears JAX's compiled programs between tests: tests/jax_programs.py
+
 REPO = Path(__file__).resolve().parents[1]
 BACKENDS = ["python", "native"]
 PACKAGES = {"jax": jax_store, "torch": store}
