@@ -20,12 +20,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    quantized metrics, at the first three shapes (tiers: 1e-5 relative,
    summation order only; packed: bit-equal, BQ cosine 1.2e-7 absolute).
    Every case also checks that an index past the store gives NaN and, for
-   the tiers, a query gathered from the store (a build's). Each time is
+   the tiers, a query gathered from the store (a build's), which under a
+   difference metric must find its own row at exactly 0. Each time is
    one pair of CUDA events around many back-to-back launches, over the
    count, with the candidate rows rotating through 8 index sets so that
    they come from device memory, not the 50 MB L2 cache (median of 5 such
    pairs); beside it the least time the card could take (its bound: the
-   distinct rows the indices touch, read once);
+   distinct rows the indices touch, read once) and the per-pair floor
+   (each pair's row read once);
 4. the insertion-wave path at 100k × 768 cosine (``bench.py``'s data,
    seed 42): stage → ``build_graph(bulk=False)`` (efc 48, wave 4096) →
    ``check_validity`` → ``to_device`` → ``hnsw_search`` at ef 50 and 100,
@@ -70,7 +72,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    scan of the tier's rows keeps of that answer (the encoding's own
    ceiling) and the recall against that scan (>= 0.93; against f32 at
    least 0.93 of the ceiling), and the device bytes the Reader's
-   serve-only upload holds and peaks at.
+   serve-only upload holds and peaks at; then euclidean ``"raw"`` built by
+   waves (``bulk(False)``), and both euclidean ``"raw"`` builds searched at
+   ef 100 and 200 as well: the triage of euclidean f32 recall (the graph,
+   the ef, or the bulk candidates).
 
 The build seconds of phases 4 and 5 are the wall time of an unfenced
 ``build_graph``, ended by one ``torch.cuda.synchronize()``. The kernel's
@@ -84,9 +89,13 @@ kernel line has one
 entry for each form of the kernel — row type (f32, bf16, int8, packed) ×
 family (dot: cosine; difference: euclidean, manhattan; popcount: the
 packed metrics) — with the launches that phases 5-8 made in that form,
-each step counted from 0, and as its headline the phase-3 case of the
-shape those phases launch most. The run fails if a form was never
-launched. It needs no network and imports nothing of JAX.
+each step counted from 0, the kernel design that served them, and as its
+headline the phase-3 case of the shape those phases launch most. The run
+fails if a form was never launched, or if an f32, bf16 or int8 launch of
+phases 5-8 (all at 768-wide rows) did not take the staged design. Phase 3
+also gives each case's per-pair floor (each pair's row read once) beside
+its bound. ``--kernel-only`` stops after phase 3. It needs no network
+and imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -115,8 +124,13 @@ NEW_FORM_SHAPES = ((256, 32), (4096, 32), (8192, 8))
 PACKED_METRICS = ("hamming", "binary quantized cosine", "binary quantized euclidean", "binary quantized manhattan")
 #: phase 7: items of the HAMMING wave build
 N_HAMMING = 20_000
-#: phase 8: (metric, tier) cells; euclidean "raw" gives the f32 figures
-TIER_CELLS = (("cosine", "bf16"), ("cosine", "int8"), ("euclidean", "raw"), ("euclidean", "bf16"), ("euclidean", "int8"))
+#: phase 8: (metric, tier, build) cells; euclidean "raw" gives the f32
+#: figures. "default" takes the bulk path; "waves" (``bulk(False)``) is
+#: there to tell apart what lowers euclidean f32 recall: the graph, the
+#: ef or the bulk candidates (both raw cells are searched at TRIAGE_EF too)
+TIER_CELLS = (("cosine", "bf16", "default"), ("cosine", "int8", "default"), ("euclidean", "raw", "default"),
+              ("euclidean", "bf16", "default"), ("euclidean", "int8", "default"), ("euclidean", "raw", "waves"))
+TRIAGE_EF = 200
 #: phase 6: items appended after the reopen, the store's size limit, and
 #: the least share of appended vectors that must find themselves first
 N_APPEND = 2000
@@ -194,6 +208,15 @@ def bound(b: int, k: int, rows: float, row_bytes: int, q_bytes: int, header: boo
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
+def pair_floor(b: int, k: int, row_bytes: int, q_bytes: int, header: bool) -> float:
+    """The least time (ms) for the same launch if each (query, candidate)
+    pair's row is read once (what a kernel that does not find repeated
+    indices has to read): b·k rows and headers, the queries, indices and
+    outputs, over the HBM rate."""
+    head = 4 if header else 0
+    return (b * k * (row_bytes + head) + b * (q_bytes + head) + b * k * 8) / HBM_BYTES_PER_S * 1e3
+
+
 def _index_sets(gen, device, make_query, b: int, k: int):
     """``INDEX_SETS`` × (q, qn, idx) with 5% of the indices at -1."""
     import torch
@@ -240,10 +263,16 @@ def kernel_case(metric, row: str, store, norms, sets, tol: str, row_bytes: int, 
     ok = ok and bool(torch.isnan(marked[0, 0])) and int(torch.isnan(marked).sum()) == 1
     ok = ok and bool(torch.equal(marked.flatten()[1:], got.flatten()[1:]))
     if build_query is not None:
-        bq, bqn = build_query
-        ok_b, abs_b, rel_b = errors(beam_cuda.gathered_distances(metric, store, norms, bq, bqn, idx),
-                                    beam_cuda.gathered_distances_plain(metric, store, norms, bq, bqn, idx))
+        # a build's query, gathered from the store; column 0 holds its own
+        # row, which a difference metric must find at exactly 0
+        bq, bqn, pick = build_query
+        own = idx.clone()
+        own[:, 0] = pick.to(torch.int32)
+        got_b = beam_cuda.gathered_distances(metric, store, norms, bq, bqn, own)
+        ok_b, abs_b, rel_b = errors(got_b, beam_cuda.gathered_distances_plain(metric, store, norms, bq, bqn, own))
         ok, max_abs, max_rel = ok and ok_b, max(max_abs, abs_b), max(max_rel, rel_b)
+        if name != "cosine" and not bool((got_b[:, 0] == 0).all()):
+            raise AssertionError(f"kernel {row} {name}: a row against its own copy is not exactly 0: {got_b[:, 0].abs().max()}")
     kernel_fns = [lambda s=s: beam_cuda.gathered_distances(metric, store, norms, *s) for s in sets]
     plain_fns = [lambda s=s: beam_cuda.gathered_distances_plain(metric, store, norms, *s) for s in sets]
     launches = max(16, (1 << 22) // (b * k))
@@ -251,20 +280,23 @@ def kernel_case(metric, row: str, store, norms, sets, tol: str, row_bytes: int, 
     family = beam_cuda.form_of(metric, store.dtype)[1]
     header = name in ("cosine", "binary quantized cosine") or (row == "int8" and family == "difference")
     bound_ms, bound_by = bound(b, k, rows, row_bytes, q_bytes, header, ops)
+    floor_ms = pair_floor(b, k, row_bytes, q_bytes, header)
     case = {
         "form": f"{row}/{family}", "metric": name, "shape": [b, k, store.shape[1]], "tolerance": tol,
+        "design": beam_cuda.design_of(store.dtype, metric, store.shape[1], True),
         "max_abs_err": max_abs, "max_rel_err": max_rel,
         "ms": per_launch_ms(kernel_fns, launches),
         "plain_ms": per_launch_ms(plain_fns, max(8, launches // 8)),
-        "bound_ms": bound_ms, "bound_by": bound_by, "distinct_rows": rows,
+        "bound_ms": bound_ms, "bound_by": bound_by, "distinct_rows": rows, "pair_floor_ms": floor_ms,
         "launches_per_event_pair": launches,
     }
     case["roofline_share"] = bound_ms / case["ms"]
-    print(f"kernel {row} {name} [{b},{k},{store.shape[1]}]: max_abs_err {max_abs:.3e} max_rel_err {max_rel:.3e} ({tol}) "
-          f"kernel {case['ms']:.5f} ms plain {case['plain_ms']:.5f} ms "
-          f"bound {bound_ms:.5f} ms "
-          f"({bound_by}, {rows:.0f} distinct rows; share {case['roofline_share']:.3f}; "
-          f"{launches} launches per event pair)", flush=True)
+    case["pair_floor_share"] = floor_ms / case["ms"]
+    print(f"kernel {row} {name} [{b},{k},{store.shape[1]}] ({case['design']}): max_abs_err {max_abs:.3e} "
+          f"max_rel_err {max_rel:.3e} ({tol}) kernel {case['ms']:.5f} ms plain {case['plain_ms']:.5f} ms "
+          f"bound {bound_ms:.5f} ms ({bound_by}, {rows:.0f} distinct rows; share {case['roofline_share']:.3f}); "
+          f"per-pair floor {floor_ms:.5f} ms (share {case['pair_floor_share']:.3f}); "
+          f"{launches} launches per event pair", flush=True)
     if not ok:
         raise AssertionError(f"kernel disagrees with its twin: {case}")
     return case
@@ -310,7 +342,7 @@ def check_kernel(device) -> list[dict]:
                 pick = torch.randint(0, N, (b,), generator=gen, device=device)
                 cases.append(kernel_case(metric, tier, t_rows, t_norms, sets, "rel", DIM * elem, DIM * 4,
                                          DIM * (2 if name == "cosine" else 3),
-                                         build_query=(t_rows[pick].contiguous(), t_norms[pick].contiguous())))
+                                         build_query=(t_rows[pick].contiguous(), t_norms[pick].contiguous(), pick)))
             del t_rows, t_norms
     del host
 
@@ -435,6 +467,8 @@ def profiled_build(device, data, label: str, **opts) -> dict:
 
 #: launches of the main path (phases 5-8) per form "row/family" → {"launches", "by_shape"}
 MAIN_PATH: dict[str, dict] = {}
+#: launches of the main path per (row type, kernel design)
+MAIN_DESIGNS: dict[tuple[str, str], int] = {}
 
 
 def count_main_path(step: str) -> dict:
@@ -445,8 +479,11 @@ def count_main_path(step: str) -> dict:
 
     kernel = beam_cuda.KERNEL
     forms = {f"{row}/{family}": n for (row, family), n in kernel.by_form.items()}
-    if sum(forms.values()) != kernel.launches:
-        raise AssertionError(f"[{step}] launches per form {forms} do not add up to {kernel.launches}")
+    if sum(forms.values()) != kernel.launches or sum(kernel.by_design.values()) != kernel.launches:
+        raise AssertionError(f"[{step}] launches per form {forms} or per design {kernel.by_design} do not add up "
+                             f"to {kernel.launches}")
+    for key, n in kernel.by_design.items():
+        MAIN_DESIGNS[key] = MAIN_DESIGNS.get(key, 0) + n
     for form, n in forms.items():
         entry = MAIN_PATH.setdefault(form, {"launches": 0, "by_shape": {}})
         entry["launches"] += n
@@ -607,7 +644,14 @@ def api_path(device, data, queries, card: str) -> dict:
         if not all(len(row) == K for row in after):
             raise AssertionError(f"[{label}] a query came back with fewer than {K} results")
         recall = float(np.mean([[d <= thresh[b] for _, d in row] for b, row in enumerate(after)]))
-        print(f"[{label}] recall@10 at ef={ef} through Reader.by_vecs: {recall:.4f}", flush=True)
+        # by id too, as phase 8 reads euclidean: the exact top-10 of the data itself (slot == item id)
+        valid = torch.ones(N, dtype=torch.bool, device=device)
+        exact_ids = flat_topk(metric.name, q, qn, torch.from_numpy(data).to(device),
+                              torch.from_numpy(distances.np_norms(metric, data)).to(device), valid, K)[1].cpu().numpy()
+        out["recall_at_10_by_id"] = float(np.mean([len({i for i, _ in row} & set(exact_ids[b].tolist()))
+                                                   for b, row in enumerate(after)])) / K
+        print(f"[{label}] recall@10 at ef={ef} through Reader.by_vecs: {recall:.4f} (by id {out['recall_at_10_by_id']:.4f})",
+              flush=True)
         if recall < RECALL_BAR:
             raise AssertionError(f"[{label}] recall@10 {recall} below {RECALL_BAR}")
         _, out["seconds"]["assert_validity"] = timed(f"Reader.assert_validity on the {N}-item index", reader.assert_validity)
@@ -885,24 +929,30 @@ def tier_path(device, data, queries, card: str) -> dict:
     valid = torch.ones(N, dtype=torch.bool, device=device)
     q = torch.from_numpy(queries).to(device)
     exact = {}
-    for name in sorted({name for name, _ in TIER_CELLS}):
+    for name in sorted({name for name, _, _ in TIER_CELLS}):
         metric = distances.by_name(name)
         nrm = torch.from_numpy(distances.np_norms(metric, data)).to(device)
         qn = torch.from_numpy(distances.np_norms(metric, queries)).to(device)
         exact[name] = flat_topk(name, q, qn, rows_f32, nrm, valid, K)[1].cpu().numpy()  # slot == item id
     del rows_f32, valid, q
-    for name, tier in TIER_CELLS:
-        cell = out[f"{name}/{tier}"] = {}
+    for name, tier, build in TIER_CELLS:
+        key = f"{name}/{tier}" + ("/waves" if build == "waves" else "")
+        cell = out[key] = {}
         metric = distances.by_name(name)
         with tempfile.TemporaryDirectory() as path:
             kernel.reset_counts()
             db = Database(path, Metric(name), map_size=API_MAP_SIZE, tier=tier)
             writer = db.writer(dimensions=DIM, m=M, ef=EFC)
             writer.add_items(range(N), data)
-            with_spans, cell["build_s"] = _timed(label, card, device, f"{name} tier={tier} build of {N} x {DIM}",
-                                                 lambda: _spans_of(lambda: writer.builder(seed=42).build()))
-            if "bulk_build" not in with_spans:
-                raise AssertionError(f"[{label}] the {name} {tier} build did not take the bulk path")
+
+            def builder():
+                hb = writer.builder(seed=42)
+                return hb.bulk(False).wave_size(WAVE) if build == "waves" else hb
+
+            with_spans, cell["build_s"] = _timed(label, card, device, f"{key} build of {N} x {DIM}",
+                                                 lambda: _spans_of(lambda: builder().build()))
+            if ("bulk_build" in with_spans) != (build == "default"):
+                raise AssertionError(f"[{label}] the {key} build took the wrong path: {sorted(with_spans)}")
             db.commit_rw_txn()
             cuda = device.type == "cuda"
             if cuda:
@@ -931,15 +981,22 @@ def tier_path(device, data, queries, card: str) -> dict:
             cell["recall_at_10"] = overlap(found, exact[name].tolist())
             cell["recall_at_10_own_rows"] = overlap(found, own.tolist())
             cell["exact_scan_recall_at_10"] = overlap(own.tolist(), exact[name].tolist())
+            if tier == "raw":
+                # the triage: recall by id (as phase 6 also reads cosine) at ef and at TRIAGE_EF
+                wide = reader.by_vecs(queries, n=K, ef_search=TRIAGE_EF)
+                cell["recall_at_10_by_ef"] = {
+                    ef: cell["recall_at_10"], TRIAGE_EF: overlap([{i for i, _ in row} for row in wide], exact[name].tolist())}
+                print(f"[{label}] {key} triage: recall@10 by id at ef {ef} / {TRIAGE_EF}: "
+                      f"{cell['recall_at_10_by_ef'][ef]:.4f} / {cell['recall_at_10_by_ef'][TRIAGE_EF]:.4f}", flush=True)
             t = [one_call(device, lambda: reader.by_vecs(queries, n=K, ef_search=ef)) for _ in range(5)]
             cell["qps"] = N_QUERIES / float(np.median(t))
             reader.assert_validity()
-            forms = count_main_path(f"{label}: {name} {tier}")
+            forms = count_main_path(f"{label}: {key}")
             form = "/".join(beam_cuda.form_of(metric, want_dtype))
             if set(forms) != {form}:
                 raise AssertionError(f"[{label}] {name} {tier} launched {forms}, expected only {form}")
             cell["launches"] = forms[form]
-            print(f"[{label}] {name} tier={tier}: recall@10 at ef={ef} against the exact f32 top-10 {cell['recall_at_10']:.4f} "
+            print(f"[{label}] {key}: recall@10 at ef={ef} against the exact f32 top-10 {cell['recall_at_10']:.4f} "
                   f"(an exact scan of the tier's rows reaches {cell['exact_scan_recall_at_10']:.4f}), against the exact "
                   f"top-10 of the tier's rows {cell['recall_at_10_own_rows']:.4f}; "
                   f"Reader.by_vecs {cell['qps']:.1f} QPS (median of 5); a row takes {cell['row_bytes']} bytes, the Reader's "
@@ -1030,6 +1087,14 @@ def main() -> int:
                 c[f"launches_{path}"] = res["build_launches_by_shape"].get(key, 0) + res["search_launches_by_shape"].get(key, 0)
             c["launches_api_path"] = sum(step.get(key, 0) for step in api["launches_by_shape"].values())
 
+    # every f32, bf16 and int8 launch of the main path (all at 768-wide
+    # rows, whole 16-byte units) went through the staged design
+    designs = {f"{row}/{design}": n for (row, design), n in sorted(MAIN_DESIGNS.items())}
+    print(f"main path launches per row type and design: {json.dumps(designs)}", flush=True)
+    for row in ("f32", "bf16", "int8"):
+        if MAIN_DESIGNS.get((row, "warp"), 0) or not MAIN_DESIGNS.get((row, "staged"), 0):
+            raise AssertionError(f"the main path's {row} launches did not all go through the staged design: {designs}")
+
     # one entry per form; its headline is the timed case of the metric the
     # main path drives in that form, at the shape it launches most
     driven = {"dot": "cosine", "difference": "euclidean", "popcount": "binary quantized cosine"}
@@ -1048,6 +1113,7 @@ def main() -> int:
             "name": f"gather_distances[{form}]",
             "route": "cuda",
             "source": "hannoy_tpu_torch/csrc/gather_distances.cu",
+            "design": "/".join(d for (r, d), n in sorted(MAIN_DESIGNS.items()) if r == form.split("/")[0] and n),
             "replaces": "hannoy_tpu/ops/beam_pallas.py:108",
             "launches": main["launches"],
             "launches_by_shape": main["by_shape"],

@@ -11,7 +11,8 @@
 // For query b and column k it reads row idx[b,k] of the [N, D*] store and
 // reduces it against q[b]. idx < 0 reads row 0 (the caller masks those
 // entries, as in the JAX contract); idx >= N writes NaN, so a caller bug
-// shows up instead of reading foreign memory.
+// shows up instead of reading foreign memory (the plain twin does the
+// same; the JAX package's XLA gather would clamp to row N-1).
 //
 // Row types and what the wrapper hands over (one query type per row type):
 //   f32     rows float, q float: dot (cosine), squared L2, L1.
@@ -28,20 +29,50 @@
 //           2·pc, bq cosine (1 - (d_pad - 2·pc)/(qn·norm))/2, 0 where
 //           qn·norm == 0; d_pad = 32·lanes.
 //
-// What bounds each form: memory, everywhere. A hop reads B*K randomly
-// placed rows (403 MB of f32 rows at B=4096, K=32, D=768; a half of that
-// in bf16, a quarter in int8, 12.6 MB packed) for at most 3 operations an
-// element, far below the card's compute roofline. The design therefore
-// only has to keep the row reads coalesced and never materialise the
-// [B, K, D*] gather. f32, bf16 and int8 rows: one warp per (b, k) streams
-// the row with 16-byte loads (4, 8 or 16 elements a lane) and the query
-// beside it, reduces with warp shuffles, and lane 0 applies the epilogue.
+// What bounds each form on the H100: device memory, everywhere. A hop
+// reads B*K randomly placed rows (403 MB of f32 rows at B=4096, K=32,
+// D=768; a half of that in bf16, a quarter in int8, 12.6 MB packed) for at
+// most 3 operations an element, two orders of magnitude below the 295
+// operations a byte where the card stops being memory-bound. So a form is
+// as fast as it keeps rows in flight from HBM; a pair's chain of dependent
+// memory trips (its index, then its row, then its headers) is what stands
+// in the way when rows are small.
+//
+// Two designs for f32, bf16 and int8 rows; ops/beam_cuda.py:design_of
+// picks one per launch and passes it in:
+//   staged  (rows that are whole 16-byte units from 16-byte aligned bases,
+//           with a tile that fits in shared memory: every launch of the
+//           main path): one block per query and tile of up to kTile
+//           candidates, one warp per kRowsPerWarp of them. The query, in
+//           its f32 form, is copied once per block by one bulk
+//           asynchronous copy (cp.async.bulk, completing on an mbarrier).
+//           Each warp loads its rows' indices and, with all of its lanes,
+//           pulls its rows into shared memory by 16-byte asynchronous
+//           copies (cp.async, one commit group a row) and loads their
+//           headers; then it waits for the query and reduces each row
+//           against the staged query as soon as the row's group has
+//           landed, four independent sums a lane, so that the rows still
+//           in flight hide the reduction. Half of the int8 codes become
+//           floats without the quarter-rate conversion, so that both kinds
+//           of pipe work at once. This is the TPU kernel's structure
+//           (start the copies of all of a block's rows, then wait and
+//           reduce) in Hopper's terms: a tile's rows are all in flight at
+//           once without holding registers, a pair's chain is two trips
+//           (index; then row, header and query together), and the query
+//           crosses device memory once per block. Rows are not bulk copies:
+//           at these sizes the SM's copy unit takes bulk copies one after
+//           another and becomes the limit (PERF.md §6 has the measurement).
+//   warp    (rows of other widths or bases): one warp per (b, k) streams
+//           the row with 16-byte loads (4, 8 or 16 elements a lane; single
+//           elements where rows are not whole 16-byte units) and the query
+//           beside it, reduces with warp shuffles, and lane 0 applies the
+//           epilogue.
 // Packed rows are short (768 bits = 24 lanes = 96 bytes = six 16-byte
 // loads), so a whole warp would leave most of its lanes idle: eight
 // threads take one pair, four pairs to a warp, reduced over the eight by
 // shuffles. At the search hop [256, 32] a packed launch moves under 1 MB:
-// its bytes bound is far below the cost of a launch.
-// Each row crosses device memory once per launch.
+// its bytes bound is far below the cost of a launch, and what it loses
+// there only fewer launches can win back.
 //
 // Built by hannoy_tpu_torch/ops/beam_cuda.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -50,6 +81,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
@@ -66,10 +99,17 @@ constexpr int kRowBf16 = 1;
 constexpr int kRowInt8 = 2;
 constexpr int kRowPacked = 3;
 
+constexpr int kDesignWarp = 0;
+constexpr int kDesignStaged = 1;
+constexpr int kDesignPacked = 2;
+
 constexpr float kEps = 1.1920929e-07f;  // f32::EPSILON
 constexpr int kWarpsPerBlock = 8;
 constexpr int kPackedGroup = 8;  // threads per (b, k) pair of packed rows
 constexpr int kPackedPairsPerBlock = kWarpsPerBlock * 32 / kPackedGroup;
+constexpr int kTile = 32;  // candidates per block of the staged design: every K the main path launches (8, 16, 32)
+constexpr int kRowsPerWarp = kTile / kWarpsPerBlock;  // staged design: rows a warp stages and reduces
+static_assert(kRowsPerWarp <= 4, "the staged kernel waits on at most 4 copy groups a warp");
 
 template <int METRIC>
 __device__ __forceinline__ float step(float acc, float q, float r) {
@@ -86,9 +126,24 @@ __device__ __forceinline__ float query(float x) {
   return ROUND ? __bfloat162float(__float2bfloat16_rn(x)) : x;
 }
 
-// One row type's view of a row: ELEMS elements per 16-byte load.
+// The cosine epilogue: the distance from a dot product and qn * norm.
+__device__ __forceinline__ float cosine_distance(float dot, float denom) {
+  const float cosv = fminf(fmaxf(dot / fmaxf(denom, kEps), -1.f), 1.f);
+  return denom > kEps ? (1.f - cosv) * 0.5f : 0.f;
+}
+
+// One row type's view of a row: ELEMS elements per 16-byte load. For the
+// staged design, a row is read from shared memory in Units of UNIT_ELEMS
+// elements (8 bytes of int8 rows, so that a 768-wide row is 96 of them,
+// three for each lane of a warp); group(u, g, out) gives elements
+// 4g .. 4g+3 of a unit.
 template <typename ROW>
 struct RowTraits;
+
+// The 32-bit word i (0-3) of a 16-byte load.
+__device__ __forceinline__ uint32_t word(const uint4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
 
 template <>
 struct RowTraits<float> {
@@ -100,6 +155,9 @@ struct RowTraits<float> {
     out[2] = __uint_as_float(v.z);
     out[3] = __uint_as_float(v.w);
   }
+  using Unit = uint4;
+  static constexpr int UNIT_ELEMS = 4;
+  static __device__ __forceinline__ void group(const uint4& v, int, float* out) { unpack(v, out); }
 };
 
 template <>
@@ -117,6 +175,15 @@ struct RowTraits<__nv_bfloat16> {
       out[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
     }
   }
+  using Unit = uint4;
+  static constexpr int UNIT_ELEMS = 8;
+  static __device__ __forceinline__ void group(const uint4& v, int g, float* out) {
+    const uint32_t lo = word(v, 2 * g), hi = word(v, 2 * g + 1);
+    out[0] = __uint_as_float(lo << 16);
+    out[1] = __uint_as_float(lo & 0xffff0000u);
+    out[2] = __uint_as_float(hi << 16);
+    out[3] = __uint_as_float(hi & 0xffff0000u);
+  }
 };
 
 template <>
@@ -133,6 +200,22 @@ struct RowTraits<int8_t> {
       for (int b = 0; b < 4; ++b) {
         out[4 * j + b] = static_cast<float>(static_cast<int8_t>((w[j] >> (8 * b)) & 0xffu));
       }
+    }
+  }
+  // The int → float conversion runs at a quarter of the f32 rate, so only
+  // group 0 takes it; group 1 goes by the integer and f32 pipes, which
+  // work beside it: byte v ^ 0x80 = v + 128 becomes the low byte of the
+  // float 2^23 + v + 128, and subtracting 2^23 + 128 leaves v, exactly.
+  using Unit = uint2;
+  static constexpr int UNIT_ELEMS = 8;
+  static __device__ __forceinline__ void group(const uint2& v, int g, float* out) {
+    if (g == 0) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) out[e] = static_cast<float>(static_cast<int8_t>((v.x >> (8 * e)) & 0xffu));
+    } else {
+      const uint32_t biased = v.y ^ 0x80808080u;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) out[e] = __uint_as_float(__byte_perm(biased, 0x4b000000u, 0x7650u + e)) - 8388736.f;
     }
   }
 };
@@ -202,14 +285,188 @@ gather_distances_kernel(const ROW* __restrict__ vectors,
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
 
-  if (lane == 0) {
-    float res = acc;
-    if (METRIC == kCosine) {
-      const float denom = qn[b] * norms[row];
-      const float cosv = fminf(fmaxf(acc / fmaxf(denom, kEps), -1.f), 1.f);
-      res = denom > kEps ? (1.f - cosv) * 0.5f : 0.f;
+  if (lane == 0) out[pair] = METRIC == kCosine ? cosine_distance(acc, qn[b] * norms[row]) : acc;
+}
+
+// ---- the staged design: asynchronous copies into shared memory ----
+
+__device__ __forceinline__ uint32_t shared_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void barrier_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(shared_addr(bar)) : "memory");
+}
+
+// Arrive once and expect `bytes` of transactions, then copy `bytes` from
+// device memory to shared memory; the copy's completion counts them down.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(shared_addr(bar)), "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          shared_addr(dst)),
+      "l"(src), "r"(bytes), "r"(shared_addr(bar))
+      : "memory");
+}
+
+// A block's barrier serves one phase (each block stages one query): wait
+// for phase 0 to complete.
+__device__ __forceinline__ void barrier_wait(uint64_t* bar) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(shared_addr(bar))
+        : "memory");
+  }
+}
+
+// A unit with its two halves swapped when `swap` (groups 0 and 1 of an
+// 8-element unit).
+__device__ __forceinline__ uint4 swap_halves(uint4 v, bool swap) {
+  return swap ? make_uint4(v.z, v.w, v.x, v.y) : v;
+}
+__device__ __forceinline__ uint2 swap_halves(uint2 v, bool swap) { return swap ? make_uint2(v.y, v.x) : v; }
+
+template <int N>
+__device__ __forceinline__ void copies_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 16-byte asynchronous copy from device to shared memory, through L2 only.
+__device__ __forceinline__ void copy16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(shared_addr(dst)), "l"(src) : "memory");
+}
+
+// One block per (query b, tile of up to kTile candidates), one warp per
+// kRowsPerWarp candidates of the tile. Dynamic shared memory: the query
+// (dim f32, a multiple of 16 bytes) and then the tile's rows, each
+// dim * sizeof(ROW) bytes, a multiple of 16. The query arrives by one bulk
+// copy on an mbarrier; a warp loads its rows' indices and pulls its rows
+// in with 16-byte copies from all of its lanes, one copy group a row (one
+// bulk copy a row would leave the block's 33 copies queued one behind
+// another in the SM's copy unit). Every warp waits for the query, so no
+// copy is in flight when the block leaves, then reduces each of its rows
+// as soon as that row's group has landed, with four independent sums a
+// lane; the warps' shuffles run once, for all of their rows together.
+template <typename ROW, int METRIC, bool SCALE>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+gather_staged_kernel(const ROW* __restrict__ vectors,
+                     const float* __restrict__ norms,
+                     const float* __restrict__ q,
+                     const float* __restrict__ qn,
+                     const int32_t* __restrict__ idx,
+                     float* __restrict__ out,
+                     int64_t n_rows, int dim, int k, int tiles) {
+  using T = RowTraits<ROW>;
+  using Unit = typename T::Unit;
+  constexpr bool RQ = METRIC == kCosine && sizeof(ROW) == 2;
+  constexpr bool HEADER = METRIC == kCosine || SCALE;
+  constexpr int GROUPS = T::UNIT_ELEMS / 4;  // float4s of query per unit of row
+  constexpr int R = kRowsPerWarp;
+  extern __shared__ __align__(128) unsigned char staged[];
+  __shared__ uint64_t q_bar;
+
+  const int64_t b = blockIdx.x / tiles;
+  const int first = static_cast<int>(blockIdx.x - b * tiles) * kTile;
+  const int count = min(kTile, k - first);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const uint32_t q_bytes = static_cast<uint32_t>(dim) * 4u;
+  const uint32_t row_bytes = static_cast<uint32_t>(dim) * sizeof(ROW);
+  float* sq = reinterpret_cast<float*>(staged);
+
+  if (threadIdx.x == 0) {
+    barrier_init(&q_bar);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) bulk_copy(sq, q + b * dim, q_bytes, &q_bar);
+
+  // this warp's rows: base .. base + mine - 1 of the tile; lane j < mine
+  // holds row j's index (-1: past the store) and header
+  const int base = warp * R;
+  const int mine = min(R, count - base);
+  int64_t row = -1;
+  if (lane < mine) {
+    row = __ldg(idx + b * k + first + base + lane);
+    if (row >= n_rows) row = -1;
+    else if (row < 0) row = 0;
+  }
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    const int64_t rj = __shfl_sync(0xffffffffu, row, j);
+    if (j < mine && rj >= 0) {
+      const unsigned char* src = reinterpret_cast<const unsigned char*>(vectors + rj * dim);
+      unsigned char* dst = staged + q_bytes + (base + j) * row_bytes;
+      for (uint32_t c = 16 * lane; c < row_bytes; c += 16 * 32) copy16(dst + c, src + c);
     }
-    out[pair] = res;
+    asm volatile("cp.async.commit_group;\n" ::: "memory");  // one group a row, empty or not
+  }
+  const float head = HEADER && row >= 0 ? __ldg(norms + row) : 1.f;
+  const float q_norm = METRIC == kCosine ? __ldg(qn + b) : 0.f;
+
+  barrier_wait(&q_bar);
+  if (RQ) {
+    // the query as the metric reads it, rounded once for the whole tile
+    for (int i = threadIdx.x; i < dim; i += blockDim.x) sq[i] = query<true>(sq[i]);
+    __syncthreads();
+  }
+  if (mine <= 0) return;
+
+  // A lane reads its unit's query float4s starting at group `swap`, so
+  // that the 8 lanes of a quarter-warp hit 8 different 16-byte bank groups.
+  const bool swap = GROUPS == 2 && ((lane >> 2) & 1);
+  const float4* q4 = reinterpret_cast<const float4*>(sq);
+  const int units = static_cast<int>(row_bytes / sizeof(Unit));
+  float part[R];
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    part[j] = 0.f;
+    if (j >= mine) continue;
+    switch (R - 1 - j) {  // row j's group has landed once R - 1 - j are left
+      case 3: copies_wait<3>(); break;
+      case 2: copies_wait<2>(); break;
+      case 1: copies_wait<1>(); break;
+      default: copies_wait<0>(); break;
+    }
+    __syncwarp();
+    const Unit* ru = reinterpret_cast<const Unit*>(staged + q_bytes + (base + j) * row_bytes);
+    const float scale = SCALE ? __shfl_sync(0xffffffffu, head, j) : 1.f;
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int i = lane; i < units; i += 32) {
+      // a row past the store is read all the same (its result is NaN)
+      const Unit u = swap_halves(ru[i], swap);
+#pragma unroll
+      for (int g = 0; g < GROUPS; ++g) {
+        const float4 a = q4[i * GROUPS + (g ^ static_cast<int>(swap))];
+        float c[4];
+        T::group(u, g, c);
+        const float av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          // __fmul_rn: the product is rounded before the subtraction, as
+          // in the warp design
+          acc[e] = step<METRIC>(acc[e], av[e], SCALE ? __fmul_rn(c[e], scale) : c[e]);
+        }
+      }
+    }
+    part[j] = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+    for (int j = 0; j < R; ++j) part[j] += __shfl_xor_sync(0xffffffffu, part[j], off);
+  }
+  // lane j < mine writes row j
+  float res = part[0];
+#pragma unroll
+  for (int j = 1; j < R; ++j) res = lane == j ? part[j] : res;
+  if (lane < mine) {
+    if (row < 0) res = __int_as_float(0x7fc00000);  // NaN past the store
+    else if (METRIC == kCosine) res = cosine_distance(res, q_norm * head);
+    out[b * k + first + base + lane] = res;
   }
 }
 
@@ -282,15 +539,17 @@ struct Args {
   float* out;
   int64_t n_rows;
   int dim;
-  int64_t n_pairs;
+  int64_t batch;
   int k;
+  int64_t n_pairs;
   bool vec;
   bool scale_rows;
+  int design;
   cudaStream_t stream;
 };
 
 template <typename ROW, int METRIC, bool SCALE>
-void launch_scaled(const Args& a) {
+cudaError_t launch_warp(const Args& a) {
   const int64_t blocks = (a.n_pairs + kWarpsPerBlock - 1) / kWarpsPerBlock;
   const dim3 grid(static_cast<unsigned>(blocks));
   const dim3 block(kWarpsPerBlock * 32);
@@ -303,33 +562,91 @@ void launch_scaled(const Args& a) {
     gather_distances_kernel<ROW, METRIC, false, SCALE><<<grid, block, 0, a.stream>>>(
         v, a.norms, q, a.qn, a.idx, a.out, a.n_rows, a.dim, a.n_pairs, a.k);
   }
+  return cudaSuccess;
+}
+
+// Lets `kernel` take the card's whole opt-in shared memory a block (above
+// the 48 KB default) on the current device. cudaFuncSetAttribute applies
+// to the current device only, so `done` keeps one bit per device id for
+// which it was set; every call sets the same value, so threads that race
+// here agree. Devices past id 63 set it on every call.
+template <typename KERNEL>
+cudaError_t allow_opt_in_shared(KERNEL kernel, std::atomic<uint64_t>& done) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = device < 64 ? uint64_t{1} << device : 0;
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  int opt_in = 0;
+  err = cudaDeviceGetAttribute(&opt_in, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             opt_in - static_cast<int>(attr.sharedSizeBytes));
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return err;
+}
+
+// The staged design needs whole 16-byte rows from aligned bases (vec).
+// Its shared memory grows with dim: above 48 KB the kernel has to be
+// allowed more first, and a size the card refuses comes back as that
+// call's error (ops/beam_cuda.py:design_of keeps launches inside it).
+template <typename ROW, int METRIC, bool SCALE>
+cudaError_t launch_staged(const Args& a) {
+  if (!a.vec) return cudaErrorInvalidValue;
+  const auto kernel = gather_staged_kernel<ROW, METRIC, SCALE>;
+  const int tiles = (a.k + kTile - 1) / kTile;
+  const int64_t blocks = a.batch * tiles;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
+  const int rows = a.k < kTile ? a.k : kTile;
+  const size_t smem = static_cast<size_t>(a.dim) * (4 + static_cast<size_t>(rows) * sizeof(ROW));
+  static std::atomic<uint64_t> allowed_on{0};  // one per kernel: devices on which it may take more
+  if (smem > 48 * 1024) {
+    const cudaError_t err = allow_opt_in_shared(kernel, allowed_on);
+    if (err != cudaSuccess) return err;
+  }
+  // one warp per kRowsPerWarp rows of a tile: K = 8 takes 2 warps a
+  // block, so that more blocks, and more rows, are in flight on an SM
+  const int warps = (rows + kRowsPerWarp - 1) / kRowsPerWarp;
+  kernel<<<static_cast<unsigned>(blocks), warps * 32, smem, a.stream>>>(
+      static_cast<const ROW*>(a.vectors), a.norms, static_cast<const float*>(a.q), a.qn, a.idx, a.out, a.n_rows,
+      a.dim, a.k, tiles);
+  return cudaSuccess;
+}
+
+template <typename ROW, int METRIC, bool SCALE>
+cudaError_t launch_design(const Args& a) {
+  switch (a.design) {
+    case kDesignWarp: return launch_warp<ROW, METRIC, SCALE>(a);
+    case kDesignStaged: return launch_staged<ROW, METRIC, SCALE>(a);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // Only int8 rows of euclidean / manhattan carry a scale; no other form
 // pays for the choice.
 template <typename ROW, int METRIC>
-void launch(const Args& a) {
+cudaError_t launch(const Args& a) {
   if constexpr (sizeof(ROW) == 1 && METRIC != kCosine) {
-    if (a.scale_rows) {
-      launch_scaled<ROW, METRIC, true>(a);
-      return;
-    }
+    if (a.scale_rows) return launch_design<ROW, METRIC, true>(a);
   }
-  launch_scaled<ROW, METRIC, false>(a);
+  return launch_design<ROW, METRIC, false>(a);
 }
 
 template <typename ROW>
-bool launch_rows(const Args& a, int metric) {
+cudaError_t launch_rows(const Args& a, int metric) {
   switch (metric) {
-    case kCosine: launch<ROW, kCosine>(a); return true;
-    case kEuclidean: launch<ROW, kEuclidean>(a); return true;
-    case kManhattan: launch<ROW, kManhattan>(a); return true;
-    default: return false;
+    case kCosine: return launch<ROW, kCosine>(a);
+    case kEuclidean: return launch<ROW, kEuclidean>(a);
+    case kManhattan: return launch<ROW, kManhattan>(a);
+    default: return cudaErrorInvalidValue;
   }
 }
 
 template <int METRIC>
-void launch_packed(const Args& a) {
+cudaError_t launch_packed(const Args& a) {
   const int64_t blocks = (a.n_pairs + kPackedPairsPerBlock - 1) / kPackedPairsPerBlock;
   const dim3 grid(static_cast<unsigned>(blocks));
   const dim3 block(kWarpsPerBlock * 32);
@@ -342,15 +659,17 @@ void launch_packed(const Args& a) {
     gather_popcount_kernel<METRIC, false><<<grid, block, 0, a.stream>>>(
         v, a.norms, q, a.qn, a.idx, a.out, a.n_rows, a.dim, a.n_pairs, a.k);
   }
+  return cudaSuccess;
 }
 
-bool launch_packed_rows(const Args& a, int metric) {
+cudaError_t launch_packed_rows(const Args& a, int metric) {
+  if (a.design != kDesignPacked) return cudaErrorInvalidValue;
   switch (metric) {
-    case kHamming: launch_packed<kHamming>(a); return true;
-    case kBqCosine: launch_packed<kBqCosine>(a); return true;
-    case kBqEuclidean: launch_packed<kBqEuclidean>(a); return true;
-    case kBqManhattan: launch_packed<kBqManhattan>(a); return true;
-    default: return false;
+    case kHamming: return launch_packed<kHamming>(a);
+    case kBqCosine: return launch_packed<kBqCosine>(a);
+    case kBqEuclidean: return launch_packed<kBqEuclidean>(a);
+    case kBqManhattan: return launch_packed<kBqManhattan>(a);
+    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -363,24 +682,26 @@ bool launch_packed_rows(const Args& a, int metric) {
 // packed). vec != 0 requires a row to be a whole number of 16-byte loads
 // and vectors and q to be 16-byte aligned. scale_rows != 0 multiplies
 // each row by norms[row] (the int8 tier of euclidean / manhattan).
-// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
-// a row type or metric it does not know).
+// design: 0 warp, 1 staged (row types 0-2; staged needs vec), 2 packed
+// (row type 3). Returns cudaGetLastError() after the launch, or the error
+// that kept it from launching (cudaErrorInvalidValue for a row type,
+// metric or design it does not take).
 extern "C" int gather_distances(const void* vectors, const float* norms, const void* q,
                                 const float* qn, const int32_t* idx, float* out,
                                 long long n_rows, int dim, int batch, int k, int metric,
-                                int row_type, int vec, int scale_rows, void* stream) {
+                                int row_type, int vec, int scale_rows, int design, void* stream) {
   const int64_t n_pairs = static_cast<int64_t>(batch) * k;
   if (n_pairs == 0) return static_cast<int>(cudaGetLastError());
-  const Args a{vectors, norms, q, qn, idx, out, n_rows, dim, n_pairs, k,
-               vec != 0, scale_rows != 0, static_cast<cudaStream_t>(stream)};
-  bool known = false;
+  const Args a{vectors, norms, q, qn, idx, out, n_rows, dim, batch, k, n_pairs,
+               vec != 0, scale_rows != 0, design, static_cast<cudaStream_t>(stream)};
+  cudaError_t err = cudaErrorInvalidValue;
   switch (row_type) {
-    case kRowF32: known = launch_rows<float>(a, metric); break;
-    case kRowBf16: known = launch_rows<__nv_bfloat16>(a, metric); break;
-    case kRowInt8: known = launch_rows<int8_t>(a, metric); break;
-    case kRowPacked: known = launch_packed_rows(a, metric); break;
+    case kRowF32: err = launch_rows<float>(a, metric); break;
+    case kRowBf16: err = launch_rows<__nv_bfloat16>(a, metric); break;
+    case kRowInt8: err = launch_rows<int8_t>(a, metric); break;
+    case kRowPacked: err = launch_packed_rows(a, metric); break;
     default: break;
   }
-  if (!known) return static_cast<int>(cudaErrorInvalidValue);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

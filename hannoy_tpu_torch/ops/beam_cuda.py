@@ -13,15 +13,20 @@ same function in plain PyTorch (a gather that materialises
 
 ``gathered_distances`` dispatches on where the tensors lie: CPU tensors
 take the plain twin, CUDA tensors launch the kernel or raise. There is no
-fallback from one to the other.
+fallback from one to the other, nor from one kernel design to the other:
+``design_of`` picks the design of each launch by a fixed rule ("staged"
+for f32, bf16 and int8 rows that are whole 16-byte units from aligned
+bases, "warp" for the other f32, bf16 and int8 launches, "packed" for
+packed rows), and a launch the card refuses raises.
 
 The kernel is built at first use with ``nvcc`` for ``sm_90a`` into
 ``hannoy_tpu_torch/_build/``, keyed by a hash of the source, and loaded
 with ``ctypes``. ``KERNEL.launches`` counts the launches,
-``KERNEL.by_shape`` counts them per ``(B, K)`` and ``KERNEL.by_form`` per
+``KERNEL.by_shape`` counts them per ``(B, K)``, ``KERNEL.by_form`` per
 form: ``(row type, family)`` with row type ``f32`` / ``bf16`` / ``int8`` /
 ``packed`` and family ``dot`` (cosine), ``difference`` (euclidean,
-manhattan) or ``popcount`` (the packed metrics).
+manhattan) or ``popcount`` (the packed metrics), and ``KERNEL.by_design``
+per ``(row type, design)``.
 """
 
 from __future__ import annotations
@@ -48,6 +53,13 @@ METRIC_IDS = {
 #: device row type → (name, the kernel's row-type id)
 ROW_TYPES = {torch.float32: ("f32", 0), torch.bfloat16: ("bf16", 1), torch.int8: ("int8", 2)}
 PACKED_ROWS = ("packed", 3)
+#: the kernel's designs and their ids in the C entry
+DESIGN_IDS = {"warp": 0, "staged": 1, "packed": 2}
+#: candidates per block of the staged design (``kTile`` in the source)
+TILE = 32
+#: dynamic shared memory a staged block may take: the H100's 227 KB a
+#: block, less 1 KB for the kernel's static shared memory
+STAGED_SMEM = 227 * 1024 - 1024
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -73,6 +85,7 @@ class GatherKernel:
         self.launches = 0
         self.by_shape: dict[tuple[int, int], int] = {}
         self.by_form: dict[tuple[str, str], int] = {}
+        self.by_design: dict[tuple[str, str], int] = {}
         #: nvcc's output of the last build (``-Xptxas -v``), "" if cached
         self.build_log = ""
         self.build_seconds = 0.0
@@ -81,6 +94,7 @@ class GatherKernel:
         self.launches = 0
         self.by_shape = {}
         self.by_form = {}
+        self.by_design = {}
 
     def library_path(self) -> Path:
         digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
@@ -109,7 +123,7 @@ class GatherKernel:
         if self.lib is None:
             lib = ctypes.CDLL(str(self.build()))
             fn = lib.gather_distances
-            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [ctypes.c_int] * 8 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
             self.lib = lib
         return self.lib
@@ -126,17 +140,36 @@ def form_of(metric: distances.Metric, row_dtype: torch.dtype) -> tuple[str, str]
     return ROW_TYPES[row_dtype][0], "dot" if metric.name == "cosine" else "difference"
 
 
+def design_of(row_dtype: torch.dtype, metric: distances.Metric, dim: int, aligned: bool) -> str:
+    """The kernel design of a launch on rows of ``row_dtype`` and width
+    ``dim`` under ``metric``; ``aligned``: the rows and the query start at
+    16-byte aligned addresses. "packed" for the packed metrics; "staged"
+    for f32, bf16 and int8 rows that are whole 16-byte units from aligned
+    bases and whose tile (``TILE`` rows and the f32 query) fits
+    ``STAGED_SMEM``; "warp" for every other launch."""
+    if metric.is_packed:
+        return "packed"
+    row_bytes = dim * row_dtype.itemsize
+    staged = aligned and row_bytes % 16 == 0 and TILE * row_bytes + 4 * dim <= STAGED_SMEM
+    return "staged" if staged else "warp"
+
+
 def gathered_distances_plain(
     metric: distances.Metric,
     vectors: torch.Tensor,  # [N, D*]
     norms: torch.Tensor,  # [N]
     q: torch.Tensor,  # [B, D*]
     qn: torch.Tensor,  # [B]
-    idx: torch.Tensor,  # [B, K] (-1 allowed; clamped, caller masks)
+    idx: torch.Tensor,  # [B, K] (-1 allowed; read as row 0, caller masks)
 ) -> torch.Tensor:
-    """The plain PyTorch twin of the kernel → [B, K] float32."""
-    safe = idx.clamp(min=0).long()
-    return distances.gathered_distances(metric, q, qn, vectors[safe], norms[safe])
+    """The plain PyTorch twin of the kernel → [B, K] float32. An index
+    past the store (``idx >= N``) gives NaN, as the kernel does; this
+    departs on purpose from the JAX package, whose XLA gather clamps such
+    an index to row N-1 (no caller passes one)."""
+    past = idx >= vectors.shape[0]
+    safe = idx.clamp(min=0).masked_fill(past, 0).long()
+    out = distances.gathered_distances(metric, q, qn, vectors[safe], norms[safe])
+    return out.masked_fill(past, float("nan"))
 
 
 def _canonical_query(metric: distances.Metric, vectors: torch.Tensor, q: torch.Tensor, qn: torch.Tensor) -> torch.Tensor:
@@ -161,9 +194,9 @@ def gathered_distances(
     idx: torch.Tensor,
 ) -> torch.Tensor:
     """``distances.gathered_distances(metric, q, qn, vectors[idx], norms[idx])``
-    with ``idx < 0`` read as row 0 → [B, K] float32, for f32, bf16, int8
-    and packed (int32 lanes) rows. CPU tensors run the plain twin; CUDA
-    tensors launch the kernel or raise."""
+    with ``idx < 0`` read as row 0 and ``idx >= N`` giving NaN → [B, K]
+    float32, for f32, bf16, int8 and packed (int32 lanes) rows. CPU tensors
+    run the plain twin; CUDA tensors launch the kernel or raise."""
     tensors = (vectors, norms, q, qn, idx)
     if all(t.device.type == "cpu" for t in tensors):
         return gathered_distances_plain(metric, vectors, norms, q, qn, idx)
@@ -198,21 +231,24 @@ def gathered_distances(
     if b * k == 0:
         return out
     q = _canonical_query(metric, vectors, q, qn)
-    # 16-byte loads need whole rows of them and aligned bases
-    vec = (d * vectors.element_size()) % 16 == 0 and vectors.data_ptr() % 16 == 0 and q.data_ptr() % 16 == 0
+    # 16-byte loads and asynchronous copies need whole rows of them and aligned bases
+    aligned = vectors.data_ptr() % 16 == 0 and q.data_ptr() % 16 == 0
+    vec = (d * vectors.element_size()) % 16 == 0 and aligned
     scale_rows = vectors.dtype == torch.int8 and metric.name != "cosine"
+    design = design_of(vectors.dtype, metric, d, aligned)
     lib = KERNEL.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.gather_distances(
             vectors.data_ptr(), norms.data_ptr(), q.data_ptr(), qn.data_ptr(),
             idx.data_ptr(), out.data_ptr(), n, d, b, k, METRIC_IDS[metric.name], row_id,
-            int(vec), int(scale_rows), stream,
+            int(vec), int(scale_rows), DESIGN_IDS[design], stream,
         )
     if rc != 0:
-        raise RuntimeError(f"gather_distances kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"gather_distances kernel ({design} design) did not launch: CUDA error {rc}")
     KERNEL.launches += 1
     KERNEL.by_shape[(b, k)] = KERNEL.by_shape.get((b, k), 0) + 1
     form = form_of(metric, vectors.dtype)
     KERNEL.by_form[form] = KERNEL.by_form.get(form, 0) + 1
+    KERNEL.by_design[(form[0], design)] = KERNEL.by_design.get((form[0], design), 0) + 1
     return out

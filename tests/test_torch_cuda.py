@@ -103,6 +103,94 @@ def test_tier_kernel_forms_match_twin(cuda, name, tier, query, dim):
     torch.testing.assert_close(got, want, **tol)
 
 
+def _tier_store(cuda, name, tier, n=3000, dim=768, seed=31):
+    """A random [n, dim] store in ``tier`` through the port's upload, with
+    its headers, and a numpy generator for the rest of the case."""
+    rng = np.random.default_rng(seed)
+    metric = distances.by_name(name)
+    x = rng.standard_normal((n, dim)).astype(np.float32)
+    g = hnsw.HostGraph.empty(metric, dim, 8, 16, capacity=n)
+    g.vectors[:], g.norms[:] = x, distances.np_norms(metric, x)
+    dev = hnsw.to_device(g, cuda, tier=tier)
+    return metric, dev.vectors, dev.norms, rng
+
+
+def _check_against_twin(metric, rows, norms, q, qn, idx, design):
+    """One launch: it goes through ``design``, and agrees with the twin
+    (NaN where the twin has NaN) at the tiers' tolerance."""
+    row = beam_cuda.form_of(metric, rows.dtype)[0]
+    before = beam_cuda.KERNEL.by_design.get((row, design), 0)
+    got = beam_cuda.gathered_distances(metric, rows, norms, q, qn, idx)
+    torch.cuda.synchronize()
+    assert beam_cuda.KERNEL.by_design[(row, design)] == before + 1
+    want = beam_cuda.gathered_distances_plain(metric, rows, norms, q, qn, idx)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    tol = dict(rtol=0, atol=1e-5) if metric.name == "cosine" else dict(rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got, want, equal_nan=True, **tol)
+    return got
+
+
+@pytest.mark.parametrize("k", [1, 8, 31, 32, 33, 64])
+@pytest.mark.parametrize("tier", ["raw", "bf16", "int8"])
+@pytest.mark.parametrize("name", ["cosine", "euclidean", "manhattan"])
+def test_staged_design_tiles(cuda, name, tier, k):
+    """The staged design's tiles: partial (K < 32, K = 31, 33), whole and
+    several a query, with B·K not a multiple of anything; the first tile
+    of query 3 all -1 (row 0) and one index past the store inside a tile."""
+    metric, rows, norms, rng = _tier_store(cuda, name, tier)
+    b = 37
+    q = torch.from_numpy(rng.standard_normal((b, rows.shape[1])).astype(np.float32)).to(cuda)
+    qn = torch.from_numpy(distances.np_norms(metric, q.cpu().numpy())).to(cuda)
+    idx = torch.from_numpy(rng.integers(-1, rows.shape[0], (b, k)).astype(np.int32)).to(cuda)
+    idx[3, : min(k, 32)] = -1
+    idx[5, k // 2] = rows.shape[0]
+    got = _check_against_twin(metric, rows, norms, q, qn, idx, "staged")
+    assert int(torch.isnan(got).sum()) == 1 and bool(torch.isnan(got[5, k // 2]))
+
+
+@pytest.mark.parametrize("dim", [768, 130, 37])
+@pytest.mark.parametrize("tier", ["raw", "bf16", "int8"])
+def test_design_follows_the_row_width(cuda, tier, dim):
+    """768-wide rows are whole 16-byte units and take the staged design;
+    130 and 37 wide rows are not (f32 rows of 130: 520 bytes) and take the
+    warp design."""
+    metric, rows, norms, rng = _tier_store(cuda, "euclidean", tier, dim=dim)
+    assert beam_cuda.design_of(rows.dtype, metric, dim, True) == ("staged" if dim == 768 else "warp")
+    q = torch.from_numpy(rng.standard_normal((19, dim)).astype(np.float32)).to(cuda)
+    qn = torch.zeros(19, device=cuda)
+    idx = torch.from_numpy(rng.integers(-1, rows.shape[0], (19, 32)).astype(np.int32)).to(cuda)
+    _check_against_twin(metric, rows, norms, q, qn, idx, "staged" if dim == 768 else "warp")
+
+
+@pytest.mark.parametrize("tier", ["bf16", "int8"])
+@pytest.mark.parametrize("name", ["cosine", "euclidean", "manhattan"])
+def test_staged_design_build_query_and_own_row(cuda, name, tier):
+    """A build's query, gathered from the store (int8: dequantised by its
+    scale), against the twin; under euclidean and manhattan a row against
+    its own copy gives exactly 0."""
+    metric, rows, norms, rng = _tier_store(cuda, name, tier)
+    pick = torch.from_numpy(rng.integers(0, rows.shape[0], 41)).to(cuda)
+    q, qn = rows[pick].contiguous(), norms[pick].contiguous()
+    idx = torch.from_numpy(rng.integers(-1, rows.shape[0], (41, 32)).astype(np.int32)).to(cuda)
+    idx[:, 7] = pick.to(torch.int32)
+    got = _check_against_twin(metric, rows, norms, q, qn, idx, "staged")
+    if name != "cosine":
+        assert bool((got[:, 7] == 0).all())
+
+
+@pytest.mark.parametrize("tier", ["raw", "bf16", "int8"])
+@pytest.mark.parametrize("name", ["cosine", "euclidean"])
+def test_staged_design_one_row_store(cuda, name, tier):
+    """A store of one row: every index reads it (-1 too), 1 is past it."""
+    metric, rows, norms, rng = _tier_store(cuda, name, tier, n=1)
+    q = torch.from_numpy(rng.standard_normal((5, 768)).astype(np.float32)).to(cuda)
+    qn = torch.from_numpy(distances.np_norms(metric, q.cpu().numpy())).to(cuda)
+    idx = torch.from_numpy(rng.integers(-1, 1, (5, 9)).astype(np.int32)).to(cuda)
+    idx[4, 8] = 1
+    got = _check_against_twin(metric, rows, norms, q, qn, idx, "staged")
+    assert int(torch.isnan(got).sum()) == 1
+
+
 @pytest.mark.parametrize("dim", [768, 200, 37])
 @pytest.mark.parametrize("metric", [m for m in distances.ALL_METRICS if m.is_packed], ids=lambda m: m.name)
 def test_packed_kernel_forms_match_twin(cuda, metric, dim):

@@ -222,3 +222,74 @@ def test_flat_topk_matches_jax(name, mask_dims):
     np.testing.assert_array_equal(got_s.numpy(), np.asarray(want_s))
     tol = dict(rtol=1e-5, atol=1e-4) if name == "euclidean" else _tol(name)
     np.testing.assert_allclose(got_d.numpy(), np.asarray(want_d), **tol)
+
+
+def _twin_case(row, name, n=50, d=32, b=6, k=7):
+    """Rows of one type (the port's encoders), a search query and indices
+    with -1 entries, made with numpy from a seed → twin arguments."""
+    from hannoy_tpu_torch.models import hnsw
+    from hannoy_tpu_torch.ops import codecs
+
+    rng = np.random.default_rng(9)
+    metric = distances.by_name(name)
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    q = rng.standard_normal((b, d)).astype(np.float32)
+    if row == "packed":
+        x, q = codecs.pack(x, metric.codec), codecs.pack(q, metric.codec)
+        rows, heads = distances.as_lanes(x), distances.np_norms(metric, x)
+        q, qn = distances.as_lanes(q), distances.np_norms(metric, q)
+    else:
+        rows, heads = hnsw.encode_tier(metric, x, distances.np_norms(metric, x), {"f32": "raw"}.get(row, row))
+        qn = distances.np_norms(metric, q)
+    rows = rows if isinstance(rows, torch.Tensor) else torch.from_numpy(rows)
+    idx = rng.integers(-1, n, (b, k)).astype(np.int32)
+    idx[0, 0] = -1
+    return metric, rows, torch.from_numpy(np.ascontiguousarray(heads)), torch.from_numpy(q), torch.from_numpy(qn), torch.from_numpy(idx)
+
+
+@pytest.mark.parametrize(
+    "row, name",
+    [(row, name) for row in ("f32", "bf16", "int8") for name in F32]
+    + [("packed", m.name) for m in distances.ALL_METRICS if m.is_packed],
+)
+def test_twin_marks_past_the_store_nan(row, name):
+    """The plain twin gives NaN for an index past the store, as the kernel
+    does (the JAX package's gather would clamp it to row N-1: a deliberate
+    departure), changes no other entry, and reads -1 as row 0."""
+    metric, rows, heads, q, qn, idx = _twin_case(row, name)
+    n = rows.shape[0]
+    want = beam_cuda.gathered_distances_plain(metric, rows, heads, q, qn, idx)
+    assert want.dtype == torch.float32 and bool(torch.isfinite(want).all())
+    past = idx.clone()
+    past[2, 3] = n
+    got = beam_cuda.gathered_distances(metric, rows, heads, q, qn, past)
+    assert bool(torch.isnan(got[2, 3])) and int(torch.isnan(got).sum()) == 1
+    keep = ~torch.isnan(got)
+    assert torch.equal(got[keep], want[keep])
+    zero = idx.clone()
+    zero[0, 0] = 0
+    assert torch.equal(beam_cuda.gathered_distances_plain(metric, rows, heads, q, qn, zero)[0, 0], want[0, 0])
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("dim", [768, 130, 37])
+@pytest.mark.parametrize("name", F32)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8], ids=str)
+def test_design_of_each_dense_launch(dtype, name, dim, aligned):
+    """Rows of whole 16-byte units from aligned bases take the staged
+    design; other widths and unaligned bases the warp design, whatever the
+    row type and metric."""
+    whole = dim * dtype.itemsize % 16 == 0
+    want = "staged" if whole and aligned else "warp"
+    assert beam_cuda.design_of(dtype, distances.by_name(name), dim, aligned) == want
+
+
+def test_design_of_packed_rows_and_the_shared_memory_limit():
+    for metric in distances.ALL_METRICS:
+        if metric.is_packed:
+            assert beam_cuda.design_of(torch.int32, metric, 24, True) == "packed"
+    # a staged tile holds TILE rows and the f32 query: past the limit the warp design serves
+    for dtype in (torch.float32, torch.bfloat16, torch.int8):
+        widest = beam_cuda.STAGED_SMEM // (beam_cuda.TILE * dtype.itemsize + 4) // 16 * 16
+        assert beam_cuda.design_of(dtype, distances.COSINE, widest, True) == "staged"
+        assert beam_cuda.design_of(dtype, distances.COSINE, widest + 16, True) == "warp"
