@@ -14,10 +14,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    main path's shapes — build hop [4096, 32], search hop [256, 32], the
    bulk build's random candidates [8192, 8], the upper-layer rows of
    ``fill_link_dists`` [4096, 16] — for cosine (atol 1e-5),
-   euclidean and manhattan (rtol 1e-5); then the same store in the bf16
-   and int8 tiers (the port's encoders) for the three metrics, and a
-   random store of 768-bit packed rows for hamming and the three binary
-   quantized metrics, at the first three shapes (tiers: 1e-5 relative,
+   euclidean and manhattan (rtol 1e-5), and the deletion repair's
+   spliced candidates [512, 64] for cosine and euclidean; then the same
+   store in the bf16 and int8 tiers (the port's encoders) for the three
+   metrics, and a random store of 768-bit packed rows for hamming and the
+   three binary quantized metrics, at the first three shapes (and the
+   tiers' cosine at [512, 64] too) (tiers: 1e-5 relative,
    summation order only; packed: bit-equal, BQ cosine 1.2e-7 absolute).
    Every case also checks that an index past the store gives NaN and, for
    the tiers, a query gathered from the store (a build's), which under a
@@ -75,7 +77,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    serve-only upload holds and peaks at; then euclidean ``"raw"`` built by
    waves (``bulk(False)``), and both euclidean ``"raw"`` builds searched at
    ef 100 and 200 as well: the triage of euclidean f32 recall (the graph,
-   the ef, or the bulk candidates).
+   the ef, or the bulk candidates);
+9. deletions and filtered search on the phase-6 database (102,000 items):
+   delete 2,000 items (seed 44), every entry point among them, and add
+   2,000 (seed 45) → ``build()`` (the repair ``repair_deletions``, one
+   span per level with its owners and blocks, then the waves and
+   ``inbound_recheck``) → commit → ``assert_validity``, no deleted id in
+   any of the 256 answers, recall@10 >= 0.93 at ef 100 against
+   ``flat_topk`` over the survivors, self-hit of the new items >= 0.99 →
+   close → reopen → the same answers; then ``by_vecs`` with candidate
+   sets of 0.5%, 1%, 10% and 50% of the items, each holding 100 deleted
+   ids too (below 1,000 candidates the exact linear scan answers, which
+   must reach recall 1.0; the others take the filtered beam, the 50% set
+   held to 0.93): every answer a live candidate, every row full, QPS and
+   recall@10 against the masked ``flat_topk``; and ``Reader.by_items`` of
+   256 present and 2 absent items (``None`` there, no item returned for
+   itself, recall@10 >= 0.93 against ``flat_topk`` without the item).
 
 The build seconds of phases 4 and 5 are the wall time of an unfenced
 ``build_graph``, ended by one ``torch.cuda.synchronize()``. The kernel's
@@ -88,11 +105,11 @@ kernel, and ``{"ok": true, "device": {...}}``; the line before them
 kernel line has one
 entry for each form of the kernel — row type (f32, bf16, int8, packed) ×
 family (dot: cosine; difference: euclidean, manhattan; popcount: the
-packed metrics) — with the launches that phases 5-8 made in that form,
+packed metrics) — with the launches that phases 5-9 made in that form,
 each step counted from 0, the kernel design that served them, and as its
 headline the phase-3 case of the shape those phases launch most. The run
 fails if a form was never launched, or if an f32, bf16 or int8 launch of
-phases 5-8 (all at 768-wide rows) did not take the staged design. Phase 3
+phases 5-9 (all at 768-wide rows) did not take the staged design. Phase 3
 also gives each case's per-pair floor (each pair's row read once) beside
 its bound. ``--kernel-only`` stops after phase 3. It needs no network
 and imports nothing of JAX.
@@ -118,6 +135,9 @@ RECALL_BAR = 0.93
 #: build hop, search hop, the bulk build's random-candidate step, the
 #: upper-layer rows of fill_link_dists
 KERNEL_SHAPES = ((4096, 32), (256, 32), (8192, 8), (4096, 16))
+#: the deletion repair's spliced candidates: REPAIR_BLOCK owners × ext_cap
+#: (timed for f32 cosine and euclidean, bf16 and int8 cosine)
+REPAIR_SHAPE = (512, 64)
 #: the shapes timed for the tier and packed forms: wave hop, search hop,
 #: the bulk build's random candidates
 NEW_FORM_SHAPES = ((256, 32), (4096, 32), (8192, 8))
@@ -136,6 +156,10 @@ TRIAGE_EF = 200
 N_APPEND = 2000
 API_MAP_SIZE = 4 * 2**30
 SELF_HIT_BAR = 0.99
+#: phase 9: items deleted (and as many added) on the phase-6 database, and
+#: the candidate sets' shares of its items
+N_DELETE = 2000
+FILTER_SHARES = (0.005, 0.01, 0.1, 0.5)
 #: index sets the timed launches rotate through (keeps rows out of L2)
 INDEX_SETS = 8
 TIMED_PAIRS = 5
@@ -324,7 +348,7 @@ def check_kernel(device) -> list[dict]:
     for name in ("cosine", "euclidean", "manhattan"):
         metric = distances.by_name(name)
         norms = store.norm(dim=1) if name == "cosine" else zeros
-        for b, k in KERNEL_SHAPES:
+        for b, k in KERNEL_SHAPES + ((REPAIR_SHAPE,) if name != "manhattan" else ()):
             sets = _index_sets(gen, device, f32_query(name), b, k)
             cases.append(kernel_case(metric, "f32", store, norms, sets, "abs" if name == "cosine" else "rel",
                                      DIM * 4, DIM * 4, DIM * (2 if name == "cosine" else 3)))
@@ -337,7 +361,7 @@ def check_kernel(device) -> list[dict]:
             rows, headers = hnsw.encode_tier(metric, host, distances.np_norms(metric, host), tier)
             t_rows = (rows if isinstance(rows, torch.Tensor) else torch.from_numpy(rows)).to(device)
             t_norms = torch.from_numpy(np.ascontiguousarray(headers)).to(device)
-            for b, k in NEW_FORM_SHAPES:
+            for b, k in NEW_FORM_SHAPES + ((REPAIR_SHAPE,) if name == "cosine" else ()):
                 sets = _index_sets(gen, device, f32_query(name), b, k)
                 pick = torch.randint(0, N, (b,), generator=gen, device=device)
                 cases.append(kernel_case(metric, tier, t_rows, t_norms, sets, "rel", DIM * elem, DIM * 4,
@@ -377,12 +401,12 @@ def bench_data(rng: np.random.Generator) -> tuple[np.ndarray, np.ndarray]:
     return data, queries
 
 
-def bench_append(n: int) -> np.ndarray:
+def bench_append(n: int, seed: int = 43) -> np.ndarray:
     """``n`` more items around ``bench_data``'s centres (seed 42 draws the
-    centres first; the items come from seed 43)."""
+    centres first; the items come from ``seed``)."""
     n_clusters = max(32, N // 256)
     centers = np.random.default_rng(42).standard_normal((n_clusters, DIM)).astype(np.float32) * 4.0
-    rng = np.random.default_rng(43)
+    rng = np.random.default_rng(seed)
     return (centers[rng.integers(0, n_clusters, size=n)] + rng.standard_normal((n, DIM))).astype(np.float32)
 
 
@@ -465,7 +489,7 @@ def profiled_build(device, data, label: str, **opts) -> dict:
     return out
 
 
-#: launches of the main path (phases 5-8) per form "row/family" → {"launches", "by_shape"}
+#: launches of the main path (phases 5-9) per form "row/family" → {"launches", "by_shape"}
 MAIN_PATH: dict[str, dict] = {}
 #: launches of the main path per (row type, kernel design)
 MAIN_DESIGNS: dict[tuple[str, str], int] = {}
@@ -578,10 +602,11 @@ def _print_spans(label: str, spans, skip=("insert_wave",)) -> dict:
     return {k: {"count": c, "ms": ms, "launches": n} for k, (c, ms, n) in table.items()}
 
 
-def api_path(device, data, queries, card: str) -> dict:
+def api_path(device, path: str, data, queries, card: str) -> dict:
     """Phase 6: add → build → commit → search → close → reopen → search →
-    append → build → commit → search, through Database / Writer / Reader.
-    Every span is fenced; nothing is caught."""
+    append → build → commit → search, through Database / Writer / Reader,
+    in the empty directory ``path`` (phase 9 reopens it). Every span is
+    fenced; nothing is caught."""
     import torch
 
     from hannoy_tpu_torch import Database, Metric, default_ef_upper, flat_topk, hnsw_search
@@ -600,131 +625,130 @@ def api_path(device, data, queries, card: str) -> dict:
 
     out: dict = {"seconds": {}, "spans": {}, "launches_by_shape": {}}
     kernel.reset_counts()
-    with tempfile.TemporaryDirectory() as path:
-        # ---- step 1: add → build (bulk) → commit → search ----
-        db = Database(path, Metric.COSINE, map_size=API_MAP_SIZE)
-        if db.device.type != device.type:
-            raise AssertionError(f"[{label}] the Database's default device is {db.device}, not {device}")
-        writer = db.writer(dimensions=DIM, m=M, ef=EFC)
-        _, out["seconds"]["add_items"] = timed(f"add_items of {N} x {DIM}", lambda: writer.add_items(range(N), data))
-        with recorded() as spans:
-            stats, out["seconds"]["build"] = timed("build (fenced spans)", lambda: writer.builder(seed=42).build())
-        out["spans"]["build"] = _print_spans(label, spans)
-        if "bulk_build" not in out["spans"]["build"]:
-            raise AssertionError(f"[{label}] the Writer's default build did not take the bulk path")
-        print(f"[{label}] build touched {len(stats.touched)} rows, kernel launches {kernel.launches} "
-              f"{_shapes(kernel.by_shape)}", flush=True)
-        _, out["seconds"]["commit"] = timed("commit_rw_txn", db.commit_rw_txn)
-        with recorded() as spans:
-            reader, out["seconds"]["reader_cached"] = timed("Reader.open (graph cached by the build)", db.reader)
-        out["spans"]["reader_cached"] = _print_spans(label, spans)
-        before, _ = timed(f"Reader.by_vecs, first call, ef={ef}", lambda: reader.by_vecs(queries, n=K, ef_search=ef))
-        out["launches_by_shape"]["build_and_search"] = _shapes(kernel.by_shape)
-        step1 = kernel.launches
-        count_main_path(f"{label}: build and search")
-        db.close()
+    # ---- step 1: add → build (bulk) → commit → search ----
+    db = Database(path, Metric.COSINE, map_size=API_MAP_SIZE)
+    if db.device.type != device.type:
+        raise AssertionError(f"[{label}] the Database's default device is {db.device}, not {device}")
+    writer = db.writer(dimensions=DIM, m=M, ef=EFC)
+    _, out["seconds"]["add_items"] = timed(f"add_items of {N} x {DIM}", lambda: writer.add_items(range(N), data))
+    with recorded() as spans:
+        stats, out["seconds"]["build"] = timed("build (fenced spans)", lambda: writer.builder(seed=42).build())
+    out["spans"]["build"] = _print_spans(label, spans)
+    if "bulk_build" not in out["spans"]["build"]:
+        raise AssertionError(f"[{label}] the Writer's default build did not take the bulk path")
+    print(f"[{label}] build touched {len(stats.touched)} rows, kernel launches {kernel.launches} "
+          f"{_shapes(kernel.by_shape)}", flush=True)
+    _, out["seconds"]["commit"] = timed("commit_rw_txn", db.commit_rw_txn)
+    with recorded() as spans:
+        reader, out["seconds"]["reader_cached"] = timed("Reader.open (graph cached by the build)", db.reader)
+    out["spans"]["reader_cached"] = _print_spans(label, spans)
+    before, _ = timed(f"Reader.by_vecs, first call, ef={ef}", lambda: reader.by_vecs(queries, n=K, ef_search=ef))
+    out["launches_by_shape"]["build_and_search"] = _shapes(kernel.by_shape)
+    step1 = kernel.launches
+    count_main_path(f"{label}: build and search")
+    db.close()
 
-        # ---- step 2: reopen → the same answers, recall, validity ----
-        kernel.reset_counts()
-        db, out["seconds"]["reopen"] = timed("Database reopen (native store)", lambda: Database(path, Metric.COSINE, map_size=API_MAP_SIZE))
-        with recorded() as spans:
-            reader, out["seconds"]["reader_open"] = timed("Reader.open (load from the store + upload)", db.reader)
-        out["spans"]["reader_open"] = _print_spans(label, spans)
-        if reader.n_items() != N:
-            raise AssertionError(f"[{label}] reopened index has {reader.n_items()} items, expected {N}")
-        after = reader.by_vecs(queries, n=K, ef_search=ef)
-        if after != before:
-            diff = sum(a != b for a, b in zip(after, before))
-            raise AssertionError(f"[{label}] {diff} of {N_QUERIES} answers changed across close and reopen")
-        print(f"[{label}] the {N_QUERIES} answers are the same before the close and after the reopen", flush=True)
-        metric = distances.COSINE
-        q, qn = reader._prep_queries(queries)
-        exact_d, _ = flat_topk(metric.name, q, qn, reader._dev.vectors, reader._dev.norms, reader._dev.valid, K)
-        thresh = (exact_d[:, K - 1] + 1e-6).cpu().numpy()
-        if not all(len(row) == K for row in after):
-            raise AssertionError(f"[{label}] a query came back with fewer than {K} results")
-        recall = float(np.mean([[d <= thresh[b] for _, d in row] for b, row in enumerate(after)]))
-        # by id too, as phase 8 reads euclidean: the exact top-10 of the data itself (slot == item id)
-        valid = torch.ones(N, dtype=torch.bool, device=device)
-        exact_ids = flat_topk(metric.name, q, qn, torch.from_numpy(data).to(device),
-                              torch.from_numpy(distances.np_norms(metric, data)).to(device), valid, K)[1].cpu().numpy()
-        out["recall_at_10_by_id"] = float(np.mean([len({i for i, _ in row} & set(exact_ids[b].tolist()))
-                                                   for b, row in enumerate(after)])) / K
-        print(f"[{label}] recall@10 at ef={ef} through Reader.by_vecs: {recall:.4f} (by id {out['recall_at_10_by_id']:.4f})",
-              flush=True)
-        if recall < RECALL_BAR:
-            raise AssertionError(f"[{label}] recall@10 {recall} below {RECALL_BAR}")
-        _, out["seconds"]["assert_validity"] = timed(f"Reader.assert_validity on the {N}-item index", reader.assert_validity)
+    # ---- step 2: reopen → the same answers, recall, validity ----
+    kernel.reset_counts()
+    db, out["seconds"]["reopen"] = timed("Database reopen (native store)", lambda: Database(path, Metric.COSINE, map_size=API_MAP_SIZE))
+    with recorded() as spans:
+        reader, out["seconds"]["reader_open"] = timed("Reader.open (load from the store + upload)", db.reader)
+    out["spans"]["reader_open"] = _print_spans(label, spans)
+    if reader.n_items() != N:
+        raise AssertionError(f"[{label}] reopened index has {reader.n_items()} items, expected {N}")
+    after = reader.by_vecs(queries, n=K, ef_search=ef)
+    if after != before:
+        diff = sum(a != b for a, b in zip(after, before))
+        raise AssertionError(f"[{label}] {diff} of {N_QUERIES} answers changed across close and reopen")
+    print(f"[{label}] the {N_QUERIES} answers are the same before the close and after the reopen", flush=True)
+    metric = distances.COSINE
+    q, qn = reader._prep_queries(queries)
+    exact_d, _ = flat_topk(metric.name, q, qn, reader._dev.vectors, reader._dev.norms, reader._dev.valid, K)
+    thresh = (exact_d[:, K - 1] + 1e-6).cpu().numpy()
+    if not all(len(row) == K for row in after):
+        raise AssertionError(f"[{label}] a query came back with fewer than {K} results")
+    recall = float(np.mean([[d <= thresh[b] for _, d in row] for b, row in enumerate(after)]))
+    # by id too, as phase 8 reads euclidean: the exact top-10 of the data itself (slot == item id)
+    valid = torch.ones(N, dtype=torch.bool, device=device)
+    exact_ids = flat_topk(metric.name, q, qn, torch.from_numpy(data).to(device),
+                          torch.from_numpy(distances.np_norms(metric, data)).to(device), valid, K)[1].cpu().numpy()
+    out["recall_at_10_by_id"] = float(np.mean([len({i for i, _ in row} & set(exact_ids[b].tolist()))
+                                               for b, row in enumerate(after)])) / K
+    print(f"[{label}] recall@10 at ef={ef} through Reader.by_vecs: {recall:.4f} (by id {out['recall_at_10_by_id']:.4f})",
+          flush=True)
+    if recall < RECALL_BAR:
+        raise AssertionError(f"[{label}] recall@10 {recall} below {RECALL_BAR}")
+    _, out["seconds"]["assert_validity"] = timed(f"Reader.assert_validity on the {N}-item index", reader.assert_validity)
 
-        # the API's host cost: by_vecs against the engine on the same graph,
-        # in turns after a warm-up of each, medians of the single calls.
-        # A by_vecs call's own "reader_search" span (hnsw_search and the one
-        # transfer of its result) says how much of it is the search: the
-        # rest is the API's host work, whatever the card did between turns.
-        efu = default_ef_upper(N, ef)
+    # the API's host cost: by_vecs against the engine on the same graph,
+    # in turns after a warm-up of each, medians of the single calls.
+    # A by_vecs call's own "reader_search" span (hnsw_search and the one
+    # transfer of its result) says how much of it is the search: the
+    # rest is the API's host work, whatever the card did between turns.
+    efu = default_ef_upper(N, ef)
 
-        def engine():
-            hnsw_search(reader._dev, q, qn, ef, max_iters=2 * ef + 16, ef_upper=efu)
+    def engine():
+        hnsw_search(reader._dev, q, qn, ef, max_iters=2 * ef + 16, ef_upper=efu)
 
-        for _ in range(2):
-            reader.by_vecs(queries, n=K, ef_search=ef)
-            engine()
-        reps = 7
-        times: dict[str, list] = {"by_vecs": [], "of which reader_search": [], "hnsw_search": []}
-        for _ in range(reps):
-            with tracing.record() as spans:
-                times["by_vecs"].append(one_call(device, lambda: reader.by_vecs(queries, n=K, ef_search=ef)))
-            times["of which reader_search"].append(sum(s.ms for s in spans if s.name == "reader_search") / 1e3)
-            times["hnsw_search"].append(one_call(device, engine))
-        med = {name: float(np.median(t)) for name, t in times.items()}
-        out["qps"] = {name: N_QUERIES / med[name] for name in ("by_vecs", "hnsw_search")}
-        out["api_host_ms_per_batch"] = (med["by_vecs"] - med["of which reader_search"]) * 1e3
-        print(f"[{label}] ef={ef}, medians of {reps} calls in turns: Reader.by_vecs {out['qps']['by_vecs']:.1f} QPS "
-              f"({med['by_vecs'] * 1e3:.3f} ms per {N_QUERIES}-query batch, of which its search and transfer "
-              f"{med['of which reader_search'] * 1e3:.3f} ms: the API's host cost is "
-              f"{out['api_host_ms_per_batch']:.3f} ms per batch); hnsw_search alone on the same graph "
-              f"{out['qps']['hnsw_search']:.1f} QPS ({med['hnsw_search'] * 1e3:.3f} ms) ({card})", flush=True)
-        out["launches_by_shape"]["reopen_and_search"] = _shapes(kernel.by_shape)
-        step2 = kernel.launches
-        count_main_path(f"{label}: reopen and search")
+    for _ in range(2):
+        reader.by_vecs(queries, n=K, ef_search=ef)
+        engine()
+    reps = 7
+    times: dict[str, list] = {"by_vecs": [], "of which reader_search": [], "hnsw_search": []}
+    for _ in range(reps):
+        with tracing.record() as spans:
+            times["by_vecs"].append(one_call(device, lambda: reader.by_vecs(queries, n=K, ef_search=ef)))
+        times["of which reader_search"].append(sum(s.ms for s in spans if s.name == "reader_search") / 1e3)
+        times["hnsw_search"].append(one_call(device, engine))
+    med = {name: float(np.median(t)) for name, t in times.items()}
+    out["qps"] = {name: N_QUERIES / med[name] for name in ("by_vecs", "hnsw_search")}
+    out["api_host_ms_per_batch"] = (med["by_vecs"] - med["of which reader_search"]) * 1e3
+    print(f"[{label}] ef={ef}, medians of {reps} calls in turns: Reader.by_vecs {out['qps']['by_vecs']:.1f} QPS "
+          f"({med['by_vecs'] * 1e3:.3f} ms per {N_QUERIES}-query batch, of which its search and transfer "
+          f"{med['of which reader_search'] * 1e3:.3f} ms: the API's host cost is "
+          f"{out['api_host_ms_per_batch']:.3f} ms per batch); hnsw_search alone on the same graph "
+          f"{out['qps']['hnsw_search']:.1f} QPS ({med['hnsw_search'] * 1e3:.3f} ms) ({card})", flush=True)
+    out["launches_by_shape"]["reopen_and_search"] = _shapes(kernel.by_shape)
+    step2 = kernel.launches
+    count_main_path(f"{label}: reopen and search")
 
-        # ---- step 3: append after the reopen → incremental build ----
-        kernel.reset_counts()
-        extra = bench_append(N_APPEND)
-        writer = db.writer(dimensions=DIM, m=M, ef=EFC)
-        _, out["seconds"]["append_add_items"] = timed(f"add_items of {N_APPEND} more", lambda: writer.add_items(range(N, N + N_APPEND), extra))
-        with recorded() as spans:
-            stats, out["seconds"]["append_build"] = timed("append build (fenced spans)", lambda: writer.builder(seed=42).build())
-        out["spans"]["append_build"] = sp = _print_spans(label, spans)
-        for need in ("load_graph", "fill_link_dists"):
-            if need not in sp:
-                raise AssertionError(f"[{label}] the append did not go through {need}")
-        if sp["fill_link_dists"]["launches"] == 0:
-            raise AssertionError(f"[{label}] fill_link_dists launched no kernel")
-        print(f"[{label}] append touched {len(stats.touched)} rows in {stats.waves} waves; "
-              f"fill_link_dists launched the kernel {sp['fill_link_dists']['launches']} times", flush=True)
-        _, out["seconds"]["append_commit"] = timed("commit_rw_txn", db.commit_rw_txn)
-        reader = db.reader()
-        if reader.n_items() != N + N_APPEND:
-            raise AssertionError(f"[{label}] index has {reader.n_items()} items after the append")
-        # each appended vector as a query; the ones that miss themselves
-        # are those whose insertion found few, far candidates (their
-        # layer-0 out-degree says so)
-        g = reader._graph
-        firsts = reader.by_vecs(extra, n=1, ef_search=ef)
-        found = np.asarray([bool(row) and row[0][0] == N + i for i, row in enumerate(firsts)])
-        self_hit = float(found.mean())
-        outdeg = (g.links0[[g.id_to_slot[N + i] for i in range(N_APPEND)]] >= 0).sum(1)
-        print(f"[{label}] {N_APPEND} appended items find themselves first in {self_hit:.4f} of rows at ef={ef} "
-              f"(index now {reader.n_items()} items); layer-0 out-degree: median {int(np.median(outdeg))} of those "
-              f"found, {sorted(outdeg[~found].tolist())} of the {int((~found).sum())} missed", flush=True)
-        if self_hit < SELF_HIT_BAR:
-            raise AssertionError(f"[{label}] self-hit {self_hit} below {SELF_HIT_BAR}")
-        g.check_validity()
-        out["launches_by_shape"]["append"] = _shapes(kernel.by_shape)
-        step3 = kernel.launches
-        count_main_path(f"{label}: append")
-        db.close()
+    # ---- step 3: append after the reopen → incremental build ----
+    kernel.reset_counts()
+    extra = bench_append(N_APPEND)
+    writer = db.writer(dimensions=DIM, m=M, ef=EFC)
+    _, out["seconds"]["append_add_items"] = timed(f"add_items of {N_APPEND} more", lambda: writer.add_items(range(N, N + N_APPEND), extra))
+    with recorded() as spans:
+        stats, out["seconds"]["append_build"] = timed("append build (fenced spans)", lambda: writer.builder(seed=42).build())
+    out["spans"]["append_build"] = sp = _print_spans(label, spans)
+    for need in ("load_graph", "fill_link_dists"):
+        if need not in sp:
+            raise AssertionError(f"[{label}] the append did not go through {need}")
+    if sp["fill_link_dists"]["launches"] == 0:
+        raise AssertionError(f"[{label}] fill_link_dists launched no kernel")
+    print(f"[{label}] append touched {len(stats.touched)} rows in {stats.waves} waves; "
+          f"fill_link_dists launched the kernel {sp['fill_link_dists']['launches']} times", flush=True)
+    _, out["seconds"]["append_commit"] = timed("commit_rw_txn", db.commit_rw_txn)
+    reader = db.reader()
+    if reader.n_items() != N + N_APPEND:
+        raise AssertionError(f"[{label}] index has {reader.n_items()} items after the append")
+    # each appended vector as a query; the ones that miss themselves
+    # are those whose insertion found few, far candidates (their
+    # layer-0 out-degree says so)
+    g = reader._graph
+    firsts = reader.by_vecs(extra, n=1, ef_search=ef)
+    found = np.asarray([bool(row) and row[0][0] == N + i for i, row in enumerate(firsts)])
+    self_hit = float(found.mean())
+    outdeg = (g.links0[[g.id_to_slot[N + i] for i in range(N_APPEND)]] >= 0).sum(1)
+    print(f"[{label}] {N_APPEND} appended items find themselves first in {self_hit:.4f} of rows at ef={ef} "
+          f"(index now {reader.n_items()} items); layer-0 out-degree: median {int(np.median(outdeg))} of those "
+          f"found, {sorted(outdeg[~found].tolist())} of the {int((~found).sum())} missed", flush=True)
+    if self_hit < SELF_HIT_BAR:
+        raise AssertionError(f"[{label}] self-hit {self_hit} below {SELF_HIT_BAR}")
+    g.check_validity()
+    out["launches_by_shape"]["append"] = _shapes(kernel.by_shape)
+    step3 = kernel.launches
+    count_main_path(f"{label}: append")
+    db.close()
     out.update(recall_at_10=recall, self_hit=self_hit, launches=step1 + step2 + step3,
                launches_by_step={"build_and_search": step1, "reopen_and_search": step2, "append": step3})
     print(f"[{label}] kernel launches by [B, K]: {json.dumps(out['launches_by_shape'])}", flush=True)
@@ -1014,6 +1038,172 @@ def tier_path(device, data, queries, card: str) -> dict:
     return out
 
 
+def delete_filter_path(device, path: str, queries, card: str) -> dict:
+    """Phase 9, on the phase-6 database (102,000 items after its append):
+    (a) delete 2,000 items, every entry point among them, and add 2,000
+    new ones → ``build()`` (repair, waves, re-check) → commit →
+    validity, no deleted id in any answer, recall@10 against ``flat_topk``
+    over the survivors, self-hit of the new items → close → reopen → the
+    same answers; (b) ``by_vecs`` with candidate sets of 0.5%, 1%, 10% and
+    50% of the items, each holding 100 deleted ids too: which side each
+    took, QPS, recall@10 against the masked ``flat_topk``; (c)
+    ``Reader.by_items`` of 256 present and 2 absent items. Every span is
+    fenced and carries its kernel launches."""
+    import torch
+
+    from hannoy_tpu_torch import Database, Metric, flat_topk
+    from hannoy_tpu_torch.ops import beam_cuda, distances
+    from hannoy_tpu_torch.store import schema
+    from hannoy_tpu_torch.utils import tracing
+
+    label = "phase 9: deletions and filtered search"
+    kernel = beam_cuda.KERNEL
+    ef = EF_SWEEP[-1]
+    metric = distances.COSINE
+    out: dict = {"seconds": {}, "spans": {}, "filtered": {}, "launches": {}}
+
+    def recorded():
+        return tracing.record(fence=lambda: _sync(device), probe=lambda: kernel.launches)
+
+    def timed(what: str, fn):
+        return _timed(label, card, device, what, fn)
+
+    def recall_by_dist(answers, q, qn, mask, want_rows) -> float:
+        """Share of returned distances within the exact K-th (+1e-6) over
+        ``mask``; each row must hold ``want_rows`` entries."""
+        exact_d, _ = flat_topk(metric.name, q, qn, reader._dev.vectors, reader._dev.norms, mask, K)
+        kth = (exact_d[:, want_rows - 1] + 1e-6).cpu().numpy()
+        if any(len(row) != want_rows for row in answers):
+            raise AssertionError(f"[{label}] a row came back with other than {want_rows} entries")
+        return float(np.mean([[d <= kth[b] for _, d in row] for b, row in enumerate(answers)]))
+
+    # ---- (a) delete 2,000 (every entry point among them), add 2,000 ----
+    kernel.reset_counts()
+    db = Database(path, Metric.COSINE, map_size=API_MAP_SIZE)
+    txn = db._env.read_txn()
+    md = schema.Metadata.from_bytes(db._db.get(txn, schema.Key.metadata(0).to_bytes()))
+    items = md.items.to_array().astype(np.int64)
+    n_before = len(items)
+    eps = sorted(int(e) for e in md.entry_points)
+    rng = np.random.default_rng(44)
+    rest = np.setdiff1d(items, eps)
+    doomed = np.sort(np.concatenate([eps, rng.choice(rest, N_DELETE - len(eps), replace=False)])).astype(np.int64)
+    new_ids = np.arange(N + N_APPEND, N + N_APPEND + N_DELETE)
+    extra = bench_append(N_DELETE, seed=45)
+    writer = db.writer(dimensions=DIM, m=M, ef=EFC)
+
+    def churn():
+        for i in doomed.tolist():
+            if not writer.del_item(i):
+                raise AssertionError(f"[{label}] item {i} was not there to delete")
+        writer.add_items(new_ids, extra)
+
+    _, out["seconds"]["del_and_add_items"] = timed(f"del_item x {N_DELETE} ({len(eps)} entry points) + add_items of {N_DELETE}", churn)
+    with recorded() as spans:
+        stats, out["seconds"]["build"] = timed("delete + add build (fenced spans)", lambda: writer.builder(seed=42).build())
+    out["spans"]["build"] = sp = _print_spans(label, spans, skip=("insert_wave", "repair_level"))
+    waves = [s for s in spans if s.name == "insert_wave"]
+    print(f"[{label}]   span insert_wave: {len(waves)} x, {sum(s.ms for s in waves):.2f} ms, kernel launches "
+          f"{sum(s.probed for s in waves)}", flush=True)
+    out["repair_levels"] = []
+    for s in spans:
+        if s.name == "repair_level":
+            out["repair_levels"].append({**s.fields, "ms": s.ms, "launches": s.probed})
+            print(f"[{label}]   span repair_level {s.fields['level']}: {s.fields['owners']} owners in "
+                  f"{s.fields['blocks']} blocks of {REPAIR_SHAPE[0]}, {s.ms:.2f} ms, kernel launches {s.probed}", flush=True)
+    for need in ("repair_deletions", "inbound_recheck", "insert_wave", "load_graph"):
+        if need not in sp:
+            raise AssertionError(f"[{label}] the build did not go through {need}: {sorted(sp)}")
+    repair_launches = kernel.by_shape.get(REPAIR_SHAPE, 0)
+    if sp["repair_deletions"]["launches"] == 0 or repair_launches == 0:
+        raise AssertionError(f"[{label}] the repair launched no kernel at {REPAIR_SHAPE}")
+    out["repair_launches_at_shape"] = repair_launches
+    print(f"[{label}] build touched {len(stats.touched)} rows in {stats.waves} waves; the repair's kernel launches "
+          f"at {list(REPAIR_SHAPE)}: {repair_launches}; all launches {_shapes(kernel.by_shape)}", flush=True)
+    _, out["seconds"]["commit"] = timed("commit_rw_txn", db.commit_rw_txn)
+    reader = db.reader()
+    n_after = n_before  # 2,000 out, 2,000 in
+    if reader.n_items() != n_after or set(doomed.tolist()) & set(reader.item_ids().to_array().tolist()):
+        raise AssertionError(f"[{label}] {reader.n_items()} items after the build, or deleted items still indexed")
+    if set(eps) & set(reader._metadata.entry_points):
+        raise AssertionError(f"[{label}] a deleted entry point is still an entry point")
+    _, out["seconds"]["assert_validity"] = timed(f"Reader.assert_validity on the {n_after}-item index", reader.assert_validity)
+    reader._graph.check_validity()
+    before = reader.by_vecs(queries, n=K, ef_search=ef)
+    dset = set(doomed.tolist())
+    if any(i in dset for row in before for i, _ in row):
+        raise AssertionError(f"[{label}] a deleted item came back in an answer")
+    q, qn = reader._prep_queries(queries)
+    out["recall_at_10"] = recall_by_dist(before, q, qn, reader._dev.valid, K)
+    firsts = reader.by_vecs(extra, n=1, ef_search=ef)
+    out["self_hit"] = float(np.mean([bool(row) and row[0][0] == int(new_ids[i]) for i, row in enumerate(firsts)]))
+    print(f"[{label}] {N_DELETE} deleted ({len(eps)} entry points, replaced by {reader._metadata.entry_points}), "
+          f"{N_DELETE} added: recall@10 at ef={ef} over the survivors {out['recall_at_10']:.4f}, no deleted id in "
+          f"{N_QUERIES} answers, the new items find themselves first in {out['self_hit']:.4f} of rows ({card})", flush=True)
+    if out["recall_at_10"] < RECALL_BAR or out["self_hit"] < SELF_HIT_BAR:
+        raise AssertionError(f"[{label}] recall@10 {out['recall_at_10']} (bar {RECALL_BAR}) or self-hit "
+                             f"{out['self_hit']} (bar {SELF_HIT_BAR})")
+    out["launches"]["delete_build_and_search"] = count_main_path(f"{label}: delete + add build and search")
+    db.close()
+
+    kernel.reset_counts()
+    db, out["seconds"]["reopen"] = timed("Database reopen", lambda: Database(path, Metric.COSINE, map_size=API_MAP_SIZE))
+    reader, out["seconds"]["reader_open"] = timed("Reader.open (load + upload)", db.reader)
+    if reader.by_vecs(queries, n=K, ef_search=ef) != before:
+        raise AssertionError(f"[{label}] answers changed across close and reopen")
+    print(f"[{label}] the {N_QUERIES} answers are the same after the close and reopen", flush=True)
+
+    # ---- (b) filtered by_vecs: 0.5%, 1%, 10%, 50% of the items + 100 deleted ids ----
+    live = reader.item_ids().to_array().astype(np.int64)
+    q, qn = reader._prep_queries(queries)
+    for share in FILTER_SHARES:
+        sel = np.random.default_rng(int(share * 1000) + 46).choice(live, int(round(share * len(live))), replace=False)
+        cands = np.concatenate([sel, doomed[:100]])
+        qb = reader.nns(K).ef_search(ef).candidates(cands)
+        side = "linear scan" if reader._should_linear_scan(qb) else "filtered beam"
+        with tracing.record() as spans:  # the warm-up; its spans say which side ran
+            answers = [s.nns for s in qb.by_vectors(queries)]
+        launches0 = kernel.launches
+        t = [one_call(device, lambda: qb.by_vectors(queries)) for _ in range(3)]
+        if ("reader_search" in {s.name for s in spans}) != (side == "filtered beam"):
+            raise AssertionError(f"[{label}] {share:.1%} took the other side than {side}")
+        allowed = set(sel.tolist())
+        if any(i not in allowed for row in answers for i, _ in row):
+            raise AssertionError(f"[{label}] {share:.1%}: an answer outside the live candidates")
+        mask = torch.from_numpy(reader._candidate_mask(qb._candidates)).to(device)
+        recall = recall_by_dist(answers, q, qn, mask, min(K, len(allowed)))
+        cell = out["filtered"][f"{share:.3f}"] = {
+            "candidates": len(cands), "live_candidates": len(allowed), "side": side, "recall_at_10": recall,
+            "qps": N_QUERIES / float(np.median(t)), "launches_per_call": (kernel.launches - launches0) / 3}
+        print(f"[{label}] by_vecs with {len(cands)} candidates ({share:.1%} of the items + 100 deleted): {side}, "
+              f"{cell['qps']:.1f} QPS (median of 3), recall@10 at ef={ef} against the masked flat_topk {recall:.4f}, "
+              f"kernel launches per call {cell['launches_per_call']:.0f} ({card})", flush=True)
+        if side == "linear scan" and recall != 1.0:
+            raise AssertionError(f"[{label}] the linear scan is not exact: recall {recall}")
+        if share == FILTER_SHARES[-1] and recall < RECALL_BAR:
+            raise AssertionError(f"[{label}] recall@10 {recall} at {share:.0%} below {RECALL_BAR}")
+
+    # ---- (c) by_items: 256 present items and 2 absent ----
+    asked = np.random.default_rng(47).choice(live, N_QUERIES, replace=False)
+    ask = asked.tolist() + doomed[:2].tolist()
+    rows, out["seconds"]["by_items"] = timed(f"Reader.by_items of {len(ask)} items", lambda: reader.by_items(ask, n=K, ef_search=ef))
+    if rows[-2:] != [None, None] or any(r is None for r in rows[:-2]):
+        raise AssertionError(f"[{label}] by_items gave None where an item is, or an answer for an absent one")
+    if any(item in [i for i, _ in row] for item, row in zip(asked.tolist(), rows)):
+        raise AssertionError(f"[{label}] by_items returned an item for itself")
+    slots = torch.tensor([reader._graph.id_to_slot[int(i)] for i in asked], device=device)
+    own = reader._dev.valid[None, :].repeat(len(asked), 1)
+    own[torch.arange(len(asked), device=device), slots] = False
+    out["by_items_recall_at_10"] = recall_by_dist(rows[:-2], reader._dev.vectors[slots], reader._dev.norms[slots], own, K)
+    print(f"[{label}] by_items of {len(asked)} present and 2 absent items: recall@10 at ef={ef} against flat_topk "
+          f"without the item itself {out['by_items_recall_at_10']:.4f}, in {out['seconds']['by_items']:.3f} s ({card})", flush=True)
+    if out["by_items_recall_at_10"] < RECALL_BAR:
+        raise AssertionError(f"[{label}] by_items recall@10 {out['by_items_recall_at_10']} below {RECALL_BAR}")
+    out["launches"]["filtered_and_by_items"] = count_main_path(f"{label}: reopen, filtered search and by_items")
+    db.close()
+    return out
+
+
 def _spans_of(fn) -> set:
     """Run ``fn`` → the names of the spans it opened."""
     from hannoy_tpu_torch.utils import tracing
@@ -1060,24 +1250,43 @@ def main() -> int:
     print(f"store library built: {os.path.relpath(native_env.library_path())} in {time.perf_counter() - t0:.2f} s", flush=True)
 
     cases = check_kernel(device)  # phase 3
+    phase_s: dict[str, float] = {}
+    clock = [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        """Wall seconds since the last lap (or since phase 3 ended)."""
+        now = time.perf_counter()
+        phase_s[name] = now - clock[0]
+        clock[0] = now
+        print(f"{name} took {phase_s[name]:.1f} s", flush=True)
+
     if "--kernel-only" in sys.argv[1:]:  # a short first run of new kernel code: build, check, time, stop
-        print(f"chip_smoke --kernel-only: {len(cases)} cases agree with their twins; phases 4-8 not run", flush=True)
+        print(f"chip_smoke --kernel-only: {len(cases)} cases agree with their twins; phases 4-9 not run", flush=True)
         return 0
     torch.cuda.empty_cache()
     data, queries = bench_data(np.random.default_rng(42))
     waves = drive(device, data, queries, "phase 4: wave build", bulk=False)  # phase 4
+    lap("phase 4")
     torch.cuda.empty_cache()
     default = drive(device, data, queries, "phase 5: default build", main_path=True)  # phase 5
     if "bulk_build" not in default["span_names"]:
         raise AssertionError("phase 5: the default build did not take the bulk path")
     default["fenced"] = fenced_spans(device, data, "phase 5: default build")
     default["profiled"] = profiled_build(device, data, "phase 5: default build")
+    lap("phase 5")
     torch.cuda.empty_cache()
-    api = api_path(device, data, queries, card)  # phase 6
-    torch.cuda.empty_cache()
-    packed = packed_path(device, data, queries, card)  # phase 7
-    torch.cuda.empty_cache()
-    tiers = tier_path(device, data, queries, card)  # phase 8
+    with tempfile.TemporaryDirectory() as api_dir:
+        api = api_path(device, api_dir, data, queries, card)  # phase 6
+        lap("phase 6")
+        torch.cuda.empty_cache()
+        packed = packed_path(device, data, queries, card)  # phase 7
+        lap("phase 7")
+        torch.cuda.empty_cache()
+        tiers = tier_path(device, data, queries, card)  # phase 8
+        lap("phase 8")
+        torch.cuda.empty_cache()
+        deletes = delete_filter_path(device, api_dir, queries, card)  # phase 9
+        lap("phase 9")
 
     # the f32 cases beside their launches on the earlier paths
     for c in cases:
@@ -1102,7 +1311,7 @@ def main() -> int:
     for form in sorted({c["form"] for c in cases}):
         main = MAIN_PATH.get(form, {"launches": 0, "by_shape": {}})
         if main["launches"] == 0:
-            raise AssertionError(f"the main path (phases 5-8) never launched the kernel's {form} form: {MAIN_PATH}")
+            raise AssertionError(f"the main path (phases 5-9) never launched the kernel's {form} form: {MAIN_PATH}")
         own = [c for c in cases if c["form"] == form]
         for c in own:
             c["launches_main_path"] = main["by_shape"].get(f"{c['shape'][0]}x{c['shape'][1]}", 0)
@@ -1127,8 +1336,9 @@ def main() -> int:
         })
     # everything measured, on one line of its own ahead of the closing
     # three (which stay short): every timed case and every path's record
-    print("detail " + json.dumps({"cases": cases, "paths": {
-        "wave_build": waves, "default_build": default, "api_path": api, "packed_path": packed, "tier_path": tiers}}))
+    print("detail " + json.dumps({"cases": cases, "phase_seconds": phase_s, "paths": {
+        "wave_build": waves, "default_build": default, "api_path": api, "packed_path": packed, "tier_path": tiers,
+        "delete_filter_path": deletes}}))
     kernels = {"kernels": entries}
     print(card_line())
     print(json.dumps(kernels))

@@ -29,7 +29,7 @@ from .api import Database, Metric, Reader, Writer
 from .build.builder import BuildOptions, build_graph
 from .models.flat import flat_topk
 from .models.hnsw import DeviceGraph, HostGraph, from_device, slot_capacity, to_device
-from .ops.beam import BeamResult, default_ef_upper, hnsw_search
+from .ops.beam import BeamResult, default_ef_upper, hnsw_search, hnsw_search_filtered
 from .ops.distances import (
     BQ_COSINE,
     BQ_EUCLIDEAN,
@@ -63,6 +63,7 @@ __all__ = [
     "BeamResult",
     "default_ef_upper",
     "hnsw_search",
+    "hnsw_search_filtered",
     "COSINE",
     "EUCLIDEAN",
     "MANHATTAN",

@@ -13,8 +13,8 @@ reference's public surface:
   ``del_item`` / ``clear`` / ``need_build`` / ``contains_item`` /
   ``item_vector`` / ``iter`` / builder options (``ef_construction``,
   ``alpha``, ``progress``) / ``force_rebuild``, and the
-  ``Reader.nns(count)`` QueryBuilder (``ef_search``, ``by_vector``,
-  ``by_vectors``).
+  ``Reader.nns(count)`` QueryBuilder (``ef_search``, ``candidates``,
+  ``linear_below``, ``by_vector(s)``, ``by_item(s)``).
 
 The on-disk store is the JAX package's, byte for byte: a directory written
 by either package opens in the other.
@@ -28,8 +28,7 @@ batched queries (``by_vecs``); single-query calls are a batch of one, and
 each search brings its result to the host in one transfer.
 
 Not ported yet (ROADMAP.md queue 1; the names are absent, not stubs):
-the candidates filter and linear scan, by-item search, cancellation,
-and builds that repair deleted items.
+cancellation.
 """
 
 from __future__ import annotations
@@ -83,6 +82,8 @@ from .version import CURRENT_VERSION
 
 DEFAULT_ENV_SIZE = 1024 * 1024 * 1024  # 1 GiB (python.rs:15)
 DEFAULT_EF_SEARCH = 100  # reader.rs:23
+DEFAULT_LINEAR_SCAN_THRESHOLD = 1000  # reader.rs:29
+DEFAULT_LINEAR_SCAN_THRESHOLD_RATIO = 1.0  # reader.rs:32
 
 
 class Metric(enum.Enum):
@@ -513,8 +514,8 @@ class Writer:
 
     def del_item(self, item: int) -> bool:
         """Delete + journal stone; True if it existed (writer.rs:483-495).
-        A build that has to unlink an item an earlier build indexed raises
-        ``NotImplementedError`` (deletion repair is not ported)."""
+        The next build unlinks the item: every row that linked it is
+        repaired through its neighbours' rows, then its links are dropped."""
         wtxn = self._database._wtxn()
         db = self._database._db
         self._staging(wtxn).pop((self._index, int(item)), None)
@@ -896,6 +897,9 @@ class QueryBuilder:
         self._reader = reader
         self._count = count
         self._ef = DEFAULT_EF_SEARCH
+        self._candidates: Optional[IdSet] = None
+        self._linear_below = DEFAULT_LINEAR_SCAN_THRESHOLD
+        self._linear_below_ratio = DEFAULT_LINEAR_SCAN_THRESHOLD_RATIO
         self._ef_upper: Optional[int] = None
 
     def ef_search(self, ef: int) -> "QueryBuilder":
@@ -910,14 +914,42 @@ class QueryBuilder:
         self._ef_upper = max(1, int(ef_upper))
         return self
 
+    def candidates(self, candidates) -> "QueryBuilder":
+        """Only these item ids may be returned (a filter; the graph walk
+        still passes through other items)."""
+        self._candidates = candidates if isinstance(candidates, IdSet) else IdSet(candidates)
+        return self
+
+    def linear_below(self, threshold: int) -> "QueryBuilder":
+        """Candidate sets smaller than this are answered by an exact scan."""
+        self._linear_below = threshold
+        return self
+
+    def linear_below_ratio(self, ratio: float) -> "QueryBuilder":
+        """... and only if they hold at most this share of the items."""
+        if not 0.0 <= ratio <= 1.0:
+            raise ValueError("linear scan threshold ratio must be between 0.0 and 1.0")
+        self._linear_below_ratio = ratio
+        return self
+
     def by_vector(self, vector: Sequence[float]) -> Searched:
         return self._reader._nns_by_vec(self, np.asarray(vector, dtype=np.float32))
 
     def by_vectors(self, vectors) -> list[Searched]:
-        """Batched search — every option applies to each query exactly as
-        the reference applies them per query (reader.rs:60-261); the batch
-        rides one search on the device."""
+        """Batched search — every option (candidates filter, linear scan,
+        ef) applies to each query exactly as the reference applies them
+        per query (reader.rs:60-261); the batch rides one search on the
+        device."""
         return self._reader._nns_by_vecs(self, np.asarray(vectors, dtype=np.float32))
+
+    def by_item(self, item: int) -> Optional[Searched]:
+        return self._reader._nns_by_item(self, int(item))
+
+    def by_items(self, items) -> list[Optional[Searched]]:
+        """Batched per-item lookup: each row runs the layer-0 beam seeded
+        at its item's own slot, never returns the item itself, and honours
+        every option; a missing item gives ``None`` at its position."""
+        return self._reader._nns_by_items(self, items)
 
 
 class Reader:
@@ -1022,14 +1054,29 @@ class Reader:
         return self.nns(n).ef_search(ef_search).by_vector(query).into_nns()
 
     def by_vecs(
-        self, queries: np.ndarray, n: int = 10, ef_search: int = 200
+        self, queries: np.ndarray, n: int = 10, ef_search: int = 200, candidates=None
     ) -> list[list[tuple[int, float]]]:
         """Batched search — the throughput path: the whole batch is one
-        search on the device, and deficient rows get the degraded-search
-        completion (reader.rs:771-795). For per-row ``Searched`` flags
-        (truncated) use ``reader.nns(n).by_vectors(...)``."""
-        searched = self.nns(n).ef_search(max(ef_search, n)).by_vectors(queries)
-        return [s.nns for s in searched]
+        search on the device, ``candidates`` filters the results (and
+        sends small sets to the exact linear scan), and deficient rows get
+        the degraded-search completion (reader.rs:771-795). For per-row
+        ``Searched`` flags (truncated) use ``reader.nns(n).by_vectors(...)``."""
+        qb = self.nns(n).ef_search(max(ef_search, n))
+        if candidates is not None:
+            qb = qb.candidates(candidates)
+        return [s.nns for s in qb.by_vectors(queries)]
+
+    def by_items(
+        self, items, n: int = 10, ef_search: int = 200, candidates=None
+    ) -> list[Optional[list[tuple[int, float]]]]:
+        """``by_vecs``' sibling for item ids: each row is seeded at its own
+        item, never returns it, and honours ``candidates``; a missing item
+        gives ``None`` at its position (the reference loops its by-item
+        search per item, reader.rs:809-894)."""
+        qb = self.nns(n).ef_search(max(ef_search, n))
+        if candidates is not None:
+            qb = qb.candidates(candidates)
+        return [None if s is None else s.nns for s in qb.by_items(items)]
 
     # -- internals ----------------------------------------------------------
     def _prep_queries(self, queries: np.ndarray) -> tuple[torch.Tensor, torch.Tensor]:
@@ -1058,23 +1105,138 @@ class Reader:
             for b in range(slots.shape[0])
         ]
 
+    def _to_host(self, dists: torch.Tensor, slots: torch.Tensor, *cols: torch.Tensor):
+        """Device result rows → host (dists, slots, extra int32 columns) in
+        one transfer: the distances as their bits beside the slots and any
+        per-row columns."""
+        k = slots.shape[1]
+        packed = torch.cat(
+            [dists.contiguous().view(torch.int32), slots.to(torch.int32), *(c.to(torch.int32)[:, None] for c in cols)],
+            dim=1,
+        ).cpu().numpy()
+        return (np.ascontiguousarray(packed[:, :k]).view(np.float32), packed[:, k : 2 * k],
+                *(packed[:, 2 * k + i] for i in range(len(cols))))
+
+    def _candidate_mask(self, candidates: Optional[IdSet]) -> Optional[np.ndarray]:
+        """[capacity] bool: the occupied slots whose item is a candidate —
+        one sorted membership test over the slots' ids. Occupancy comes
+        from the levels, not from the ids: item 0xFFFFFFFF is legal and is
+        also the free-slot sentinel."""
+        if candidates is None:
+            return None
+        g = self._graph
+        return g.valid_mask() & candidates.contains_array(g.ids)
+
+    def _should_linear_scan(self, opt: QueryBuilder) -> bool:
+        """reader.rs:622-640: few candidates, and few of the items."""
+        all_ids = self.item_ids()
+        if not all_ids or opt._candidates is None:
+            return False
+        cand_len = all_ids.intersection_len(opt._candidates)
+        return cand_len < opt._linear_below and cand_len / len(all_ids) <= opt._linear_below_ratio
+
+    def _nothing_to_find(self, opt: QueryBuilder) -> bool:
+        item_ids = self.item_ids()
+        return not item_ids or (opt._candidates is not None and item_ids.isdisjoint(opt._candidates))
+
     def _nns_by_vec(self, opt: QueryBuilder, vector: np.ndarray) -> Searched:
         return self._nns_by_vecs(opt, vector[None, :])[0]
 
     def _nns_by_vecs(self, opt: QueryBuilder, vectors: np.ndarray) -> list[Searched]:
         """Batched QueryBuilder execution — one search on the device serves
-        the whole batch; every option applies per query (reader.rs:60-261)."""
+        the whole batch; every option applies per query (reader.rs:60-261):
+        an empty index or candidates disjoint from it give empty rows, a
+        small candidate set the exact scan, any other the graph search."""
         vectors = np.atleast_2d(vectors)
         if vectors.shape[-1] != self.dimensions():
             raise InvalidVecDimension(self.dimensions(), vectors.shape[-1])
-        if not self.item_ids():
+        if self._nothing_to_find(opt):
             return [Searched([], False) for _ in range(vectors.shape[0])]
         q, qn = self._prep_queries(vectors)
+        if self._should_linear_scan(opt):
+            return self._brute_force(q, qn, opt._candidates, opt._count)
         return self._hnsw_search(q, qn, opt)
 
+    def _nns_by_item(self, opt: QueryBuilder, item: int) -> Optional[Searched]:
+        """Layer-0 search seeded at the item, excluding it
+        (reader.rs:809-894): the batch of one of ``_nns_by_items``."""
+        return self._nns_by_items(opt, [item])[0]
+
+    def _nns_by_items(self, opt: QueryBuilder, items) -> list[Optional[Searched]]:
+        """Batched per-item lookup (the reference loops reader.rs:809-894
+        per item; here the batch rides one search).
+
+        Each present row seeds the layer-0 filtered beam at its own slot —
+        no descent, the item already lives where the search starts — with
+        the pool one wider than ``count``, so that dropping the item itself
+        on the host (reader.rs:839-842) still leaves ``count`` results. A
+        small candidate set takes the exact scan over the candidates but
+        the item. Missing items give ``None`` at their position."""
+        items = [int(i) for i in items]
+        out: list[Optional[Searched]] = [None] * len(items)
+        if self._nothing_to_find(opt):
+            return out
+        present = [b for b, i in enumerate(items) if i in self._graph.id_to_slot]
+        if not present:
+            return out
+        pslots = np.asarray([self._graph.id_to_slot[items[b]] for b in present], dtype=np.int32)
+        pitems = [items[b] for b in present]
+        device = self._database._device
+        sel = torch.from_numpy(pslots).to(device)
+        q, qn = self._dev.vectors[sel.long()], self._dev.norms[sel.long()]
+
+        if self._should_linear_scan(opt):
+            # exact scan per row over the candidates but the item (reader.rs:668-711)
+            masks = np.broadcast_to(self._candidate_mask(opt._candidates), (len(present), self._graph.capacity)).copy()
+            masks[np.arange(len(present)), pslots] = False
+            rows = self._flat(q, qn, masks, opt._count)
+            for r, b in enumerate(present):
+                out[b] = Searched(rows[r], False)
+            return out
+
+        cand = self._candidate_mask(opt._candidates)
+        if cand is None:
+            cand = self._graph.valid_mask()
+        ef = max(opt._ef, opt._count + 1)  # the item may take one pool entry
+        max_iters = 2 * ef + 16
+        with span("reader_search", queries=len(present), ef=ef):
+            res = _beam.beam_search_filtered(
+                self._dev, q, qn, sel[:, None], ef, torch.from_numpy(cand).to(device), max_iters=max_iters
+            )
+            k = min(opt._count + 1, ef)
+            dists, slots, active, iters = self._to_host(
+                res.dists[:, :k], res.slots[:, :k], res.active, res.iters.expand(len(present))
+            )
+        trunc = active.astype(bool) & (int(iters[0]) >= max_iters)
+        rows = self._collect(slots, dists, opt._count + 1)
+        searched = [
+            Searched([(i, d) for i, d in rows[r] if i != pitems[r]][: opt._count], False, bool(trunc[r]))
+            for r in range(len(present))
+        ]
+        searched = self._top_up(searched, q, qn, opt, exclude_rows=[{i} for i in pitems])
+        for r, b in enumerate(present):
+            out[b] = searched[r]
+        return out
+
+    def _flat(self, q: torch.Tensor, qn: torch.Tensor, mask: np.ndarray, count: int) -> list[list[tuple[int, float]]]:
+        """Exact top-``count`` rows over the slots of ``mask`` ([capacity],
+        or one row per query) through ``flat_topk``."""
+        k = min(count, self._graph.capacity)
+        d, s = flat_topk(
+            self._metric.name, q, qn, self._dev.vectors, self._dev.norms,
+            torch.from_numpy(np.ascontiguousarray(mask)).to(self._database._device), k,
+        )
+        dists, slots = self._to_host(d, s)
+        return self._collect(slots, dists, count)
+
+    def _brute_force(self, q: torch.Tensor, qn: torch.Tensor, candidates: IdSet, count: int) -> list[Searched]:
+        """reader.rs:668-711 — the exact scan over the candidate set, batched."""
+        return [Searched(nns, False) for nns in self._flat(q, qn, self._candidate_mask(candidates), count)]
+
     def _hnsw_search(self, q: torch.Tensor, qn: torch.Tensor, opt: QueryBuilder) -> list[Searched]:
-        """reader.rs:722-800: descent, layer-0 beam, degraded top-up —
-        batched; every query in ``q`` rides the same search."""
+        """reader.rs:722-800: descent, layer-0 beam (filtered when the
+        builder has candidates), degraded top-up — batched; every query in
+        ``q`` rides the same search."""
         B = int(q.shape[0])
         if B == 0:
             return []
@@ -1086,25 +1248,21 @@ class Reader:
             else _beam.default_ef_upper(self.n_items(), ef)
         )
         with span("reader_search", queries=B, ef=ef):
-            res = _beam.hnsw_search(self._dev, q, qn, ef, max_iters=max_iters, ef_upper=efu)
+            if opt._candidates is not None:
+                mask = torch.from_numpy(self._candidate_mask(opt._candidates)).to(self._database._device)
+                res = _beam.hnsw_search_filtered(self._dev, q, qn, mask, ef, max_iters=max_iters, ef_upper=efu)
+            else:
+                res = _beam.hnsw_search(self._dev, q, qn, ef, max_iters=max_iters, ef_upper=efu)
             # one transfer to the host: the kept columns of dists (as their
             # bits) and slots, each row's active flag, and the iteration count
             k = min(opt._count, res.slots.shape[1])
-            packed = torch.cat(
-                [
-                    res.dists[:, :k].contiguous().view(torch.int32),
-                    res.slots[:, :k],
-                    res.active.to(torch.int32)[:, None],
-                    res.iters.to(torch.int32).expand(B, 1),
-                ],
-                dim=1,
-            ).cpu().numpy()
-        dists = np.ascontiguousarray(packed[:, :k]).view(np.float32)
-        slots = packed[:, k : 2 * k]
+            dists, slots, active, iters = self._to_host(
+                res.dists[:, :k], res.slots[:, :k], res.active, res.iters.expand(B)
+            )
         # Per-row truncation: a row is truncated only if IT was still
         # improving when the iteration cap cut the loop — one slow query
         # does not stamp the whole batch.
-        trunc = packed[:, 2 * k].astype(bool) & (int(packed[0, 2 * k + 1]) >= max_iters)
+        trunc = active.astype(bool) & (int(iters[0]) >= max_iters)
         searched = [
             Searched(nns, False, bool(trunc[b]))
             for b, nns in enumerate(self._collect(slots, dists, opt._count))
@@ -1112,32 +1270,47 @@ class Reader:
         return self._top_up(searched, q, qn, opt)
 
     def _top_up(
-        self, searched: list[Searched], q: torch.Tensor, qn: torch.Tensor, opt: QueryBuilder
+        self, searched: list[Searched], q: torch.Tensor, qn: torch.Tensor, opt: QueryBuilder,
+        exclude_rows: Optional[list[set[int]]] = None,
     ) -> list[Searched]:
         """Degraded-search top-up (reader.rs:771-795): rows whose beam
-        returned fewer than ``count`` results (trapped in a cyclic
-        subgraph) finish with one batched exact scan over unseen items —
-        the exact scan *is* the restart-visits loop's fixed point, so we
-        go straight there."""
-        want = min(opt._count, self.n_items())
-        deficient = [b for b, s in enumerate(searched) if len(s.nns) < want]
+        returned fewer than they could (trapped in a cyclic subgraph)
+        finish with one batched exact scan over the unseen items — the
+        exact scan *is* the restart-visits loop's fixed point, so we go
+        straight there. Honours the candidates filter. ``exclude_rows``
+        (one set of item ids per row) keeps those items out of their row:
+        ``by_items`` excludes each row's own item."""
+        short = [b for b, s in enumerate(searched) if len(s.nns) < opt._count]
+        if not short:
+            return searched
+        item_ids = self.item_ids()
+        cands = opt._candidates
+        base_achievable = item_ids.intersection_len(cands) if cands is not None else self.n_items()
+
+        def row_exclude(b: int):
+            return exclude_rows[b] if exclude_rows is not None else ()
+
+        def achievable(excl) -> int:
+            return base_achievable - sum(
+                1 for e in excl if int(e) in item_ids and (cands is None or int(e) in cands)
+            )
+
+        # a row is deficient when it holds fewer than it could: fewer than
+        # count and fewer than the items its filter and exclusions leave
+        deficient = [b for b in short if len(searched[b].nns) < achievable(row_exclude(b))]
         if not deficient:
             return searched
-        base = np.asarray(self._graph.valid_mask()).copy()
+        base = self._candidate_mask(cands)
+        if base is None:
+            base = self._graph.valid_mask()
         masks = np.broadcast_to(base, (len(deficient), self._graph.capacity)).copy()
         for r, b in enumerate(deficient):
-            for item, _ in searched[b].nns:
+            for item in {i for i, _ in searched[b].nns} | set(row_exclude(b)):
                 s = self._graph.id_to_slot.get(int(item))
                 if s is not None:
                     masks[r, s] = False
-        k = min(opt._count, self._graph.capacity)
-        device = self._database._device
-        sel = torch.tensor(deficient, dtype=torch.long, device=device)
-        d, s = flat_topk(
-            self._metric.name, q[sel], qn[sel],
-            self._dev.vectors, self._dev.norms, torch.from_numpy(masks).to(device), k,
-        )
-        extras = self._collect(s.cpu().numpy(), d.cpu().numpy(), opt._count)
+        sel = torch.tensor(deficient, dtype=torch.long, device=self._database._device)
+        extras = self._flat(q[sel], qn[sel], masks, opt._count)
         out = list(searched)
         for r, b in enumerate(deficient):
             merged = sorted(searched[b].nns + extras[r], key=lambda t: t[1])[: opt._count]

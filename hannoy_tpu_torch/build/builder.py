@@ -6,13 +6,14 @@ device steps in ``wave_ops.py`` and, for large fresh builds, the bulk
 connect in ``bulk.py``; all distance work runs on the device given to
 ``build_graph``.
 
-Options outside the ported paths raise ``NotImplementedError`` rather
-than being substituted (see ``_check_supported``): deletions and repair,
-link slack, chain seeding, ``beam_expand > 1``, ``traverse`` and in-wave
-cancellation are not ported yet (ROADMAP.md queue 1). Every metric and
-storage tier builds (``build_graph(tier=)``). The bulk path runs
-with the JAX package's default knobs, kept as constants here and in
-``bulk.py``.
+Deleted slots are repaired after the waves (``_repair_deletions``, the
+reference's fill_gaps_from_deleted) and then cleared. Options outside the
+ported paths raise ``NotImplementedError`` rather than being substituted
+(see ``_check_supported``): link slack, chain seeding, ``beam_expand > 1``
+and ``traverse`` (knobs that default to off), and cancellation (not
+ported yet, ROADMAP.md queue 1). Every metric and storage tier builds
+(``build_graph(tier=)``). The bulk path runs with the JAX package's
+default knobs, kept as constants here and in ``bulk.py``.
 """
 
 from __future__ import annotations
@@ -36,6 +37,8 @@ from .levels import sample_levels
 FLAT_BOOTSTRAP = 1024
 #: default wave width (items inserted per device step)
 DEFAULT_WAVE = 256
+#: rows repaired per device step in the deletion pass
+REPAIR_BLOCK = 512
 #: wave sizes snap to these buckets (the JAX package's, kept so both
 #: packages insert the same items in the same waves)
 _WAVE_BUCKETS = (16, 128, 1024, 4096)
@@ -110,11 +113,9 @@ class BuildOptions:
     bulk_threshold: int = 8192
 
 
-def _check_supported(g: HostGraph, deleted_slots: np.ndarray, opts: BuildOptions) -> None:
+def _check_supported(opts: BuildOptions) -> None:
     """Raise ``NotImplementedError`` for anything this port does not build
-    (every metric and storage tier is built)."""
-    if len(deleted_slots):
-        raise NotImplementedError("deletions and repair are not ported yet (ROADMAP.md queue 1)")
+    (every metric and storage tier is built, with or without deletions)."""
     for name, value, default in (
         ("link_slack", opts.link_slack, 0),
         ("chain_seeding", opts.chain_seeding, False),
@@ -277,12 +278,16 @@ def build_graph(
     (``hnsw.to_device``); the graph is then built on the distances its
     readers will see.
 
-    Preconditions: vectors/norms for ``insert_slots`` are staged in ``g``.
-    Raises ``NotImplementedError`` for what the port does not build yet.
+    Preconditions: vectors/norms for ``insert_slots`` are staged in ``g``;
+    ``deleted_slots`` rows still carry their old links (the reference
+    deletes links *after* the build so the repair can splice through
+    them, writer.rs:577-580). Raises ``NotImplementedError`` for what the
+    port does not build.
     """
-    _check_supported(g, deleted_slots, opts)
+    _check_supported(opts)
     stats = stats or BuildStats()
     device = torch.device(device)
+    deleted_set = {int(s) for s in deleted_slots}
 
     slots, lvls, active, exists_ok = plan_build(g, insert_slots, deleted_slots, opts, stats)
 
@@ -310,7 +315,7 @@ def build_graph(
     # items (the navigability backbone) go through the waves below first,
     # all the way to layer 0, laying down the long edges a pure-kNN layer
     # lacks
-    use_bulk = bulk.eligible(g.metric, n_active, 0, len(slots), opts)
+    use_bulk = bulk.eligible(g.metric, n_active, len(deleted_set), len(slots), opts)
     backbone_on = use_bulk and bool((lvls > 0).any())
     if use_bulk:
         groups = [(lv, slots[lvls == lv]) for lv in sorted({int(x) for x in lvls[lvls > 0]}, reverse=True)]
@@ -394,11 +399,19 @@ def build_graph(
         stats.waves += 1
         opts.progress.update(InsertItemsStep(total, total))
 
+    # ---- deletion repair (fill_gaps_from_deleted, hnsw.rs:334-415) ----
+    if deleted_set:
+        opts.progress.update(BuildStep.PATCH_OLD_NEW_DELETED_LINKS)
+        deleted_t = torch.tensor(sorted(deleted_set), dtype=torch.int32, device=device)
+        with span("repair_deletions", deleted=len(deleted_set)):
+            dev = _repair_deletions(dev, deleted_t, g.m0, g.m, opts, dirty)
+        wave_ops.clear_slots(dev, deleted_t)
+
     # ---- end-of-build stranding re-check ----
     # Rows with no forward links are re-inserted with exact candidates over
     # the whole live graph; rows with in-degree 0 get one forced inbound
     # edge; repeated until clean (capped).
-    if len(slots):
+    if len(slots) or deleted_set:
         with span("inbound_recheck"):
             for _round in range(12):
                 indeg_dev, outdeg_dev = wave_ops.layer0_degrees(dev, cap=g.m0)
@@ -427,12 +440,63 @@ def build_graph(
     # ---- sync back to host ----
     with span("sync_to_host"):
         hnsw.from_device(g, dev)
+        if deleted_set:  # deleted rows are dropped from the store, not flushed
+            dirty[deleted_t.long()] = False
         dirty_np, counters_np = dirty.cpu().numpy(), counters.cpu().numpy()
     stats.links_added += int(counters_np[wave_ops.CNT_FWD_LINKS] + counters_np[wave_ops.CNT_REV_DELTA])
     stats.beam_iters += int(counters_np[wave_ops.CNT_BEAM_ITERS])
     stats.store_gathers += int(counters_np[wave_ops.CNT_ROW_GATHERS]) * wave_ops.GATHER_GRANULE
     stats.touched = np.nonzero(dirty_np)[0].astype(np.int64)
     return stats
+
+
+def _repair_deletions(
+    dev: DeviceGraph,
+    deleted: torch.Tensor,  # [D] int32 deleted slots
+    m0: int,
+    m: int,
+    opts: BuildOptions,
+    dirty: torch.Tensor,
+) -> DeviceGraph:
+    """Repair every row that links a deleted slot, in blocks of
+    ``REPAIR_BLOCK`` owners (``wave_ops.repair_deleted_rows``), and mark
+    the repaired owners dirty.
+
+    Every stored layer is scanned, not only 0..max_level: a height reset
+    (``prepare_entry_points``' case 1) can leave survivors' rows above the
+    new max level, and those must lose their deleted ids too (the
+    reference resizes its layer list to every on-disk row for this,
+    hnsw.rs:346-357). The owners are found on the device, in the order of
+    the JAX package's host scan (ascending table row); owners that are
+    themselves deleted are skipped (hnsw.rs:373-375)."""
+    del_mask = torch.zeros(dev.capacity, dtype=torch.bool, device=dev.device)
+    del_mask[deleted.long()] = True
+    for level in range(dev.upper_links.shape[0] + 1):
+        if level == 0:
+            table = dev.links0
+            owners = torch.arange(dev.capacity, device=dev.device)
+        else:
+            table = dev.upper_links[level - 1]
+            rows = dev.slot_rows[level - 1]
+            owner_slots = torch.nonzero(rows >= 0)[:, 0]
+            owners = torch.full((table.shape[0],), -1, dtype=torch.int64, device=dev.device)
+            owners[rows[owner_slots].long()] = owner_slots
+        has_del = ((table >= 0) & del_mask[table.clamp(min=0).long()]).any(-1)
+        affected = owners[torch.nonzero(has_del)[:, 0]]
+        affected = affected[affected >= 0]
+        affected = affected[~del_mask[affected]].to(torch.int32)
+        dirty[affected.long()] = True
+        n_aff = int(affected.shape[0])
+        n_blocks = -(-n_aff // REPAIR_BLOCK)
+        with span("repair_level", level=level, owners=n_aff, blocks=n_blocks):
+            for start in range(0, n_aff, REPAIR_BLOCK):
+                block = torch.full((REPAIR_BLOCK,), -1, dtype=torch.int32, device=dev.device)
+                chunk = affected[start : start + REPAIR_BLOCK]
+                block[: chunk.shape[0]] = chunk
+                wave_ops.repair_deleted_rows(
+                    dev, block, del_mask, level, cap=m0 if level == 0 else m, alpha=opts.alpha
+                )
+    return dev
 
 
 def _insert_wave(

@@ -15,8 +15,9 @@ repeat except where noted.
 
 ``reverse_merge_edges_streamed`` is the bulk connector's global variant
 of the reverse merge. ``fill_link_dists`` recomputes the link distances
-of a graph loaded from the store. Not ported yet (ROADMAP.md queue 1):
-slack rows, prototype seeding, deletion repair.
+of a graph loaded from the store. ``repair_deleted_rows`` and
+``clear_slots`` are the deletion pass. Not ported (options that default
+to off, ROADMAP.md): slack rows, prototype seeding.
 """
 
 from __future__ import annotations
@@ -501,6 +502,60 @@ def fill_link_dists(g: DeviceGraph, host, block: int = 4096) -> DeviceGraph:
             d = beam.candidate_distances(g, g.vectors[_ix(slots)], g.norms[_ix(slots)], ids)
             d, ids = topk.sort_by_dist(torch.where(ids != NO_ID, d, INF), ids)
             _set_level_rows(g, level, slots, ids, d)
+    return g
+
+
+def repair_deleted_rows(
+    g: DeviceGraph,
+    row_slots: torch.Tensor,  # [R] owners with >= 1 deleted neighbour (-1 padded)
+    deleted: torch.Tensor,  # [N_pad] bool
+    level: int,
+    cap: int,
+    alpha: float,
+    ext_cap: int = 64,
+) -> DeviceGraph:
+    """FreshDiskANN gap fill (the reference's fill_gaps_from_deleted,
+    hnsw.rs:334-415), batched, in place.
+
+    For each owner row: drop its deleted neighbours, splice in those
+    neighbours' own rows at ``level`` — without deleted ids, self-links,
+    ids already in the row or repeats, keeping the first ``ext_cap`` (the
+    JAX package's documented deviation from the reference's unbounded
+    splice) — compute the spliced ids' distances to the owner (the kernel,
+    ``[R, ext_cap]``), and merge them into the row with
+    ``prune.merge_link_rows`` (α-prune on overflow)."""
+    R = row_slots.shape[0]
+    row_ids, row_d = _level_rows(g, level, row_slots)
+
+    is_del = deleted[_ix(row_ids)] & (row_ids != NO_ID)
+    base_ids = torch.where(is_del, NO_ID, row_ids)
+    base_d = torch.where(is_del, INF, row_d)
+
+    ext = beam.links_at(g, level, torch.where(is_del, row_ids, NO_ID).reshape(-1)).reshape(R, -1)
+    ext = torch.where(deleted[_ix(ext)], NO_ID, ext)
+    ext = torch.where(ext == row_slots[:, None], NO_ID, ext)  # no self-links
+    ext = torch.where(topk.contains(ext, base_ids), NO_ID, ext)
+    ext = torch.where(topk.unique_mask(ext), ext, NO_ID)
+    order = torch.argsort((ext == NO_ID).to(torch.int32), dim=-1, stable=True)
+    ext = ext.gather(1, order)[:, :ext_cap].contiguous()
+
+    ext_d = beam.candidate_distances(g, g.vectors[_ix(row_slots)], g.norms[_ix(row_slots)], ext)
+    ext_d = torch.where(ext != NO_ID, ext_d, INF)
+
+    merged_ids, merged_d = prune.merge_link_rows(
+        g.metric, g.vectors, g.norms, base_ids, base_d, ext, ext_d, cap, alpha
+    )
+    _set_level_rows(g, level, row_slots, merged_ids, merged_d)
+    return g
+
+
+def clear_slots(g: DeviceGraph, slots: torch.Tensor) -> DeviceGraph:
+    """Invalidate deleted slots and wipe their layer-0 rows, in place (the
+    host wipes their upper rows, where compact row reuse is managed)."""
+    keep = slots[slots >= 0].long()
+    g.valid[keep] = False
+    g.links0[keep] = NO_ID
+    g.dists0[keep] = INF
     return g
 
 

@@ -12,6 +12,11 @@ Counterpart of the unfiltered half of ``hannoy_tpu/ops/beam.py``:
   pool with a compare matrix, computes their distances, and sort-merges.
   A query is done when its best unexpanded distance exceeds its worst
   pooled distance.
+* ``beam_search_filtered`` ⇔ the candidates-bitmap variant: the frontier
+  may pass through non-candidates but results exclude them, so it carries
+  a frontier pool and a result pool. ``hnsw_search_filtered`` descends
+  unfiltered (upper layers route, they do not filter) and runs it at
+  layer 0; the by-item search seeds it at the item's own slot.
 
 Every hop's distances go through ``beam_cuda.gathered_distances``: the
 hand-written kernel on CUDA tensors, its plain twin on CPU tensors.
@@ -21,8 +26,8 @@ on the device as a ``go`` flag that gates each state update, so a row the
 JAX loop would have stopped is never expanded, and the host reads the flag
 only every ``SYNC_EVERY`` iterations.
 
-Not ported yet (ROADMAP.md queue 1): the filtered, by-item and
-cancellable runners, and ``expand > 1``.
+Not ported yet (ROADMAP.md queue 1): the cancellable runners, and
+``expand > 1``.
 """
 
 from __future__ import annotations
@@ -230,6 +235,14 @@ def _rows_active(pool_d: torch.Tensor, pool_id: torch.Tensor, pool_exp: torch.Te
     return (best_d <= pool_d[:, -1]) & (best_d < INF)
 
 
+def _filtered_rows_active(fr_d, fr_id, fr_exp, res_d) -> torch.Tensor:
+    """Filtered-beam rowwise continuation: the frontier's best unexpanded
+    entry against the *result* pool's worst → [B] bool."""
+    unexp_d = torch.where((fr_exp == 0) & (fr_id != NO_ID), fr_d, INF)
+    best_d = unexp_d.min(-1).values
+    return (best_d <= res_d[:, -1]) & (best_d < INF)
+
+
 def beam_search(
     g: DeviceGraph,
     q: torch.Tensor,  # [B, D]
@@ -331,6 +344,95 @@ def _beam_step(
     return body, cond
 
 
+def beam_search_filtered(
+    g: DeviceGraph,
+    q: torch.Tensor,  # [B, D]
+    qn: torch.Tensor,  # [B]
+    start: torch.Tensor,  # [B, S] seed slots (-1 padded)
+    ef: int,
+    candidate_mask: torch.Tensor,  # [N_pad] bool — allowed result slots
+    max_iters: Optional[int] = None,
+    node_ok: Optional[torch.Tensor] = None,
+) -> BeamResult:
+    """Candidate-filtered layer-0 beam search (reader.rs:322-365).
+
+    The frontier traverses any live node; the result pool admits only
+    candidates. A row continues while the frontier's best unexpanded entry
+    is no worse than the *result* pool's worst (reader.rs:329-336)."""
+    if max_iters is None:
+        max_iters = 2 * ef + 16
+    if node_ok is None:
+        node_ok = g.valid
+    state = _filtered_seed_pools(g, q, qn, start, candidate_mask, node_ok, ef)
+    body, cond = _filtered_step(g, q, qn, node_ok, candidate_mask, ef)
+    (fr_d, fr_id, fr_exp, res_d, res_id), iters = _while_loop(cond, body, state, max_iters)
+    return BeamResult(res_d, res_id, iters, _filtered_rows_active(fr_d, fr_id, fr_exp, res_d))
+
+
+def _filtered_seed_pools(g: DeviceGraph, q, qn, start, candidate_mask, node_ok, ef: int) -> State:
+    """Initial (frontier, result) pools for the filtered beam: every live
+    seed enters the frontier, the candidates among them the result pool."""
+    B = q.shape[0]
+    cand_ok = node_ok & candidate_mask
+    seed_ok = (start >= 0) & node_ok[_ix(start)]
+    seeds = torch.where(seed_ok, start, NO_ID)
+    d = seed_distances(g.metric, g.vectors, g.norms, q, qn, seeds)
+    d = torch.where(topk.unique_mask(seeds), d, INF)
+    seeds = torch.where(d < INF, seeds, NO_ID)
+    seed_cand = torch.where(cand_ok[_ix(seeds)] & (seeds != NO_ID), seeds, NO_ID)
+    seed_cand_d = torch.where(seed_cand != NO_ID, d, INF)
+
+    def empty():
+        return (torch.full((B, ef), INF, device=q.device),
+                torch.full((B, ef), NO_ID, dtype=torch.int32, device=q.device))
+
+    fr_d, fr_id = empty()
+    fr_exp = torch.zeros((B, ef), dtype=torch.int32, device=q.device)
+    fr_d, (fr_id, fr_exp) = topk.merge_sorted(fr_d, (fr_id, fr_exp), d, (seeds, torch.zeros_like(seeds)), ef)
+    res_d, res_id = empty()
+    res_d, (res_id,) = topk.merge_sorted(res_d, (res_id,), seed_cand_d, (seed_cand,), ef)
+    return fr_d, fr_id, fr_exp, res_d, res_id
+
+
+def _filtered_step(g: DeviceGraph, q, qn, node_ok, candidate_mask, ef: int):
+    """(body, cond) for the filtered beam loop over state (fr_d, fr_id,
+    fr_exp, res_d, res_id): expand the frontier's best unexpanded entry,
+    merge its unvisited live neighbours into the frontier and the
+    candidates among them into the result pool."""
+    cand_ok = node_ok & candidate_mask
+
+    def body(state):
+        fr_d, fr_id, fr_exp, res_d, res_id = state
+        unexp_d = torch.where((fr_exp == 0) & (fr_id != NO_ID), fr_d, INF)
+        pos = unexp_d.argmin(-1, keepdim=True)  # [B, 1] best unexpanded
+        best_d = unexp_d.gather(1, pos)
+        active = (best_d <= res_d[:, -1:]) & (best_d < INF)  # [B, 1]
+
+        mark = torch.zeros_like(fr_exp).scatter(1, pos, active.to(fr_exp.dtype))
+        fr_exp = torch.maximum(fr_exp, mark)
+
+        cur = torch.where(active, fr_id.gather(1, pos), NO_ID)[:, 0]
+        nbs = links_at(g, 0, cur)
+        visited = topk.contains(nbs, fr_id) | topk.contains(nbs, res_id)
+        ok = (nbs >= 0) & node_ok[_ix(nbs)] & ~visited
+        nd = torch.where(ok, candidate_distances(g, q, qn, nbs), INF)
+        nids = torch.where(ok, nbs, NO_ID)
+        fr_d, (fr_id, fr_exp) = topk.merge_sorted(
+            fr_d, (fr_id, fr_exp), nd, (nids, torch.zeros_like(nids)), ef
+        )
+        c_ok = ok & cand_ok[_ix(nbs)]
+        cd = torch.where(c_ok, nd, INF)
+        cids = torch.where(c_ok, nbs, NO_ID)
+        res_d, (res_id,) = topk.merge_sorted(res_d, (res_id,), cd, (cids,), ef)
+        return fr_d, fr_id, fr_exp, res_d, res_id
+
+    def cond(state):
+        fr_d, fr_id, fr_exp, res_d, _ = state
+        return _filtered_rows_active(fr_d, fr_id, fr_exp, res_d).any()
+
+    return body, cond
+
+
 # --------------------------------------------------------------------------
 # Full hnsw_search: descent + layer-0 beam
 # --------------------------------------------------------------------------
@@ -370,3 +472,19 @@ def hnsw_search(
     ``_descend_start``."""
     start = _descend_start(g, q, qn, ef_upper)
     return beam_search(g, q, qn, start, ef, max_iters)
+
+
+def hnsw_search_filtered(
+    g: DeviceGraph,
+    q: torch.Tensor,  # [B, D]
+    qn: torch.Tensor,  # [B]
+    candidate_mask: torch.Tensor,  # [N_pad] bool
+    ef: int,
+    max_iters: Optional[int] = None,
+    ef_upper: int = 1,
+) -> BeamResult:
+    """``hnsw_search`` with a candidates filter: the descent ignores the
+    mask (upper layers route, reader.rs:739-752), the layer-0 beam is
+    ``beam_search_filtered``."""
+    start = _descend_start(g, q, qn, ef_upper)
+    return beam_search_filtered(g, q, qn, start, ef, candidate_mask, max_iters)

@@ -337,15 +337,19 @@ def test_database_defaults_to_cuda_and_keeps_the_device(tmp_path):
 
 def test_unported_names_are_absent():
     for cls, names in (
-        (api.Reader, ["by_items", "_brute_force", "_candidate_mask", "_should_linear_scan"]),
-        (api.QueryBuilder, ["candidates", "linear_below", "by_item", "by_vector_with_cancellation"]),
+        (api.QueryBuilder, ["by_vector_with_cancellation", "by_vectors_with_cancellation",
+                            "by_item_with_cancellation", "by_items_with_cancellation"]),
         (api.HannoyBuilder, ["cancel"]),
         (api.Writer, ["release_device_cache"]),
     ):
         assert not [n for n in names if hasattr(cls, n)]
     # the conversions between metrics are ported (tests/test_torch_packed.py holds them against the JAX Writer)
     assert all(hasattr(api.Writer, n) for n in ("prepare_changing_distance", "prepare_foreign_conversion"))
-    assert list(inspect.signature(api.Reader.by_vecs).parameters) == ["self", "queries", "n", "ef_search"]
+    # filtered and by-item search are ported (tests/test_torch_filter.py holds them against the JAX Reader)
+    assert all(hasattr(api.Reader, n) for n in ("by_items", "_brute_force", "_candidate_mask", "_should_linear_scan"))
+    assert all(hasattr(api.QueryBuilder, n) for n in ("candidates", "linear_below", "linear_below_ratio", "by_item", "by_items"))
+    assert list(inspect.signature(api.Reader.by_vecs).parameters) == ["self", "queries", "n", "ef_search", "candidates"]
+    assert "cancel" not in inspect.signature(api.Reader.by_items).parameters
 
 
 def test_reader_errors(db, tmp_path):
@@ -518,8 +522,8 @@ def test_incremental_build_flushes_only_touched_rows(db):
     assert r.nns(3).by_vector(data[5]).nns[0][0] == 5
 
 
-def test_deleting_a_built_item_is_not_ported_but_an_unbuilt_one_is_fine(db):
-    _fill(db, 50, 8, seed=6)
+def test_deleting_a_built_item_and_an_unbuilt_one(db):
+    data = _fill(db, 50, 8, seed=6)
     w = db.writer(8, m=8, ef=48)
     w.add_item(900, np.ones(8))
     assert w.del_item(900) and not w.del_item(901)  # never built: no slot to repair
@@ -529,10 +533,12 @@ def test_deleting_a_built_item_is_not_ported_but_an_unbuilt_one_is_fine(db):
     assert r.n_items() == 50 and not r.contains_item(900)
     r.assert_validity()
     assert w.del_item(3)
-    with pytest.raises(NotImplementedError):
-        w.builder().build()
-    db.abort_rw_txn()
-    assert db.reader().contains_item(3)
+    w.builder().build()
+    db.commit_rw_txn()
+    r = db.reader()
+    r.assert_validity()  # no dangling edge to the deleted item
+    assert r.n_items() == 49 and not r.contains_item(3) and r.item_vector(3) is None
+    assert not [i for row in r.by_vecs(data, n=10, ef_search=32) for i, _ in row if i == 3]
 
 
 def test_force_rebuild_and_clear(db):

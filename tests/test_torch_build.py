@@ -272,12 +272,21 @@ def test_unported_options_raise(change):
                             dataclasses.replace(_opts(builder), **change), device="cpu")
 
 
-def test_deletions_raise():
+def test_deleting_a_built_slot_repairs_and_an_unbuilt_one_is_harmless():
+    """A build that deletes slot 3 (built) and slot N-1 (staged, never
+    built) unlinks 3 from every row and leaves a valid graph; neither slot
+    is flushed as touched (tests/test_torch_delete.py holds the repair
+    against the JAX package)."""
     data, _ = _data()
     g = _stage(hnsw, data)
-    with pytest.raises(NotImplementedError):
-        builder.build_graph(g, np.arange(N, dtype=np.int64), np.asarray([3]), _opts(builder), device="cpu")
-    assert (g.levels == -1).all()  # nothing was planned before raising
+    builder.build_graph(g, np.arange(N - 1, dtype=np.int64), np.empty(0, np.int64), _opts(builder), device="cpu")
+    assert (g.links0 == 3).any() and g.levels[N - 1] == -1
+    stats = builder.build_graph(g, np.empty(0, np.int64), np.asarray([3, N - 1]), _opts(builder), device="cpu")
+    assert not (g.links0 == 3).any() and not any((a == 3).any() for a in g.upper_links)
+    assert len(stats.touched) and not {3, N - 1} & set(stats.touched.tolist())
+    g.release_slot(3)  # the Writer releases deleted slots after the build
+    g.check_validity()
+    assert g.n_items == N - 2 and 3 not in g.entry_slots
 
 
 @pytest.mark.parametrize("flat_max", [builder.BACKBONE_FLAT_MAX, 0], ids=["flat_backbone", "beam_backbone"])

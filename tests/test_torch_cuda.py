@@ -395,3 +395,97 @@ def test_api_path_on_cuda_matches_cpu(cuda, tmp_path):
     recall = {k: float(np.mean([[d <= kth[b] for _, d in row] for b, row in enumerate(v)])) for k, v in answers.items()}
     print(f"recall@10 cpu {recall['cpu']:.4f} cuda {recall['cuda']:.4f}")
     assert recall["cuda"] >= recall["cpu"] - 0.02
+
+
+@pytest.mark.parametrize("form", ["cosine/raw", "euclidean/raw", "manhattan/raw", "cosine/bf16", "euclidean/bf16",
+                                  "manhattan/bf16", "cosine/int8", "euclidean/int8", "manhattan/int8",
+                                  "hamming", "binary quantized cosine", "binary quantized euclidean",
+                                  "binary quantized manhattan"])
+def test_repair_shape_matches_twin(cuda, form):
+    """The deletion repair's launch, [REPAIR_BLOCK, 64] at D = 768, for
+    every dense and packed form: the owners' own rows as queries (a
+    build's), the spliced ids as candidates with -1 padding at the end of
+    a row, as ``wave_ops.repair_deleted_rows`` hands them over."""
+    from hannoy_tpu_torch.ops import codecs
+
+    b, k = builder.REPAIR_BLOCK, 64
+    name, _, tier = form.partition("/")
+    metric = distances.by_name(name)
+    if metric.is_packed:
+        rng = np.random.default_rng(41)
+        lanes = codecs.pack(rng.standard_normal((3000, 768)).astype(np.float32), metric.codec)
+        rows = torch.from_numpy(distances.as_lanes(lanes)).to(cuda)
+        norms = torch.from_numpy(distances.np_norms(metric, lanes)).to(cuda)
+    else:
+        metric, rows, norms, rng = _tier_store(cuda, name, tier)
+    pick = torch.from_numpy(rng.integers(0, rows.shape[0], b)).to(cuda)
+    q, qn = rows[pick].contiguous(), norms[pick].contiguous()
+    idx = rng.integers(0, rows.shape[0], (b, k)).astype(np.int32)
+    idx[np.arange(k)[None, :] >= rng.integers(1, k + 1, (b, 1))] = -1  # each row's splice ends early
+    idx = torch.from_numpy(idx).to(cuda)
+    before = beam_cuda.KERNEL.by_shape.get((b, k), 0)
+    got = beam_cuda.gathered_distances(metric, rows, norms, q, qn, idx)
+    torch.cuda.synchronize()
+    assert beam_cuda.KERNEL.by_shape[(b, k)] == before + 1
+    want = beam_cuda.gathered_distances_plain(metric, rows, norms, q, qn, idx)
+    if metric.name == "binary quantized cosine":
+        torch.testing.assert_close(got, want, rtol=0, atol=1.2e-7)
+    elif metric.is_packed:
+        assert torch.equal(got, want)
+    else:
+        tol = dict(rtol=0, atol=1e-5) if name == "cosine" else dict(rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(got, want, **tol)
+
+
+def test_delete_and_filter_on_cuda_match_cpu(cuda, tmp_path):
+    """At 1500 x 32 cosine through ``Database``: build → commit → delete 50
+    items and every entry point, add 50 → build (the repair launches the
+    kernel on the card) → commit → filtered ``by_vecs`` and ``by_items``,
+    on the card against the same calls on the CPU. Items and metadata are
+    equal; links records and answers up to the kernel's summation order
+    (near-ties), distances to 1e-5."""
+    n, d = 1500, 32
+    rng = np.random.default_rng(8)
+    data = rng.standard_normal((n, d)).astype(np.float32)
+    extra = rng.standard_normal((50, d)).astype(np.float32)
+    queries = rng.standard_normal((64, d)).astype(np.float32)
+    cands = sorted(rng.choice(n + 50, 600, replace=False).tolist())
+    records, answers = {}, {}
+    for name, kw in (("cpu", {"device": "cpu"}), ("cuda", {})):
+        db = Database(tmp_path / name, Metric.COSINE, **kw)
+        w = db.writer(d, m=8, ef=32)
+        w.add_items(range(n), data)
+        w.builder(seed=42).bulk(False).build()
+        db.commit_rw_txn()
+        eps = db.reader()._metadata.entry_points
+        doomed = sorted(set(range(0, n, 30)) | set(eps))
+        w = db.writer(d, m=8, ef=32)
+        for i in doomed:
+            assert w.del_item(i)
+        w.add_items(range(n, n + 50), extra)
+        before = beam_cuda.KERNEL.by_shape.get((builder.REPAIR_BLOCK, 64), 0)
+        w.builder(seed=42).build()
+        db.commit_rw_txn()
+        assert (beam_cuda.KERNEL.by_shape.get((builder.REPAIR_BLOCK, 64), 0) > before) == (name == "cuda")
+        r = db.reader()
+        r.assert_validity()
+        answers[name] = (r.nns(10).ef_search(64).linear_below(100).candidates(cands).by_vectors(queries)
+                         + r.nns(10).ef_search(64).by_items(list(range(100, 400, 7))))
+        found = {i for s in answers[name] if s is not None for i, _ in s.nns}
+        assert not found & set(doomed) and found - set(r.item_ids()) == set()
+        records[name] = dict(db._db.prefix_iter(db._env.read_txn(), b""))
+        db.close()
+    a, b = records["cpu"], records["cuda"]
+    assert a.keys() == b.keys()
+    links = [k for k in a if k[2] == 2]
+    assert all(a[k] == b[k] for k in a if k[2] != 2)  # items, metadata, version
+    share = float(np.mean([a[k] == b[k] for k in links]))
+    print(f"delete + add on cuda vs cpu: identical links records {share:.4f} of {len(links)}")
+    assert share >= 0.98
+    pairs = [(g, c) for g, c in zip(answers["cuda"], answers["cpu"]) if c is not None]
+    same = [[i for i, _ in g.nns] == [i for i, _ in c.nns] for g, c in pairs]
+    print(f"filtered and by-item answers identical on {np.mean(same):.4f} of {len(pairs)} rows")
+    assert np.mean(same) >= 0.95
+    for (g, c), eq in zip(pairs, same):
+        if eq:
+            np.testing.assert_allclose([x for _, x in g.nns], [x for _, x in c.nns], rtol=1e-5, atol=1e-5)
