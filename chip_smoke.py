@@ -92,7 +92,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    held to 0.93): every answer a live candidate, every row full, QPS and
    recall@10 against the masked ``flat_topk``; and ``Reader.by_items`` of
    256 present and 2 absent items (``None`` there, no item returned for
-   itself, recall@10 >= 0.93 against ``flat_topk`` without the item).
+   itself, recall@10 >= 0.93 against ``flat_topk`` without the item);
+   then cancellation: ``by_vectors``, ``by_items`` and a filtered
+   ``by_vectors`` at 10% with a cancel that never fires (the uncancelled
+   answers, id for id and distance for distance) and with one that fires
+   at its 1st, 2nd and 4th check (``did_cancel`` on every row, live ids
+   only, sorted, each distance within 1e-5 of ``flat_topk``'s), and a
+   ``builder().cancel(fn).build()`` over 500 added and 100 deleted items
+   that fires at its 3rd check: ``BuildCancelled``, ``abort_rw_txn``, and a
+   new Reader gives the answers of before;
+10. sharded build and serving on the one card: 100,000 × 768 cosine
+   (``bench_data``, seed 42, n/256 centres) in 4 shards of 25k, all on
+   ``cuda:0``, in a temporary directory: ``ShardedWriter`` add →
+   ``build(spmd=False)`` (every shard by the bulk path) → commit →
+   ``ShardedReader`` → ``assert_validity`` → search of the 256 queries at
+   ef 100 (recall@10 >= 0.93 against ``flat_topk`` over all 100k; QPS
+   beside one shard's ``Reader.by_vecs``; device bytes per shard) → append
+   2,000 (seed 43) and delete 400, every shard's entry points among them
+   → the lockstep build (``spmd_wave`` spans) → commit → a new
+   ``ShardedReader``: no deleted id, self-hit >= 0.99, recall >= 0.93 → a
+   lockstep build whose cancel fires at its 2nd check raises
+   ``BuildCancelled``, and after the abort the answers are those of before.
 
 The build seconds of phases 4 and 5 are the wall time of an unfenced
 ``build_graph``, ended by one ``torch.cuda.synchronize()``. The kernel's
@@ -105,11 +125,11 @@ kernel, and ``{"ok": true, "device": {...}}``; the line before them
 kernel line has one
 entry for each form of the kernel — row type (f32, bf16, int8, packed) ×
 family (dot: cosine; difference: euclidean, manhattan; popcount: the
-packed metrics) — with the launches that phases 5-9 made in that form,
+packed metrics) — with the launches that phases 5-10 made in that form,
 each step counted from 0, the kernel design that served them, and as its
 headline the phase-3 case of the shape those phases launch most. The run
 fails if a form was never launched, or if an f32, bf16 or int8 launch of
-phases 5-9 (all at 768-wide rows) did not take the staged design. Phase 3
+phases 5-10 (all at 768-wide rows) did not take the staged design. Phase 3
 also gives each case's per-pair floor (each pair's row read once) beside
 its bound. ``--kernel-only`` stops after phase 3. It needs no network
 and imports nothing of JAX.
@@ -160,6 +180,20 @@ SELF_HIT_BAR = 0.99
 #: the candidate sets' shares of its items
 N_DELETE = 2000
 FILTER_SHARES = (0.005, 0.01, 0.1, 0.5)
+#: phase 9 (d): the checks at which a search's cancel fires, the filter
+#: share it is also run under, how far a partial row's distance may be
+#: from flat_topk's, and the build the cancel stops (items added, deleted)
+CANCEL_AT = (1, 2, 4)
+CANCEL_FILTER_SHARE = 0.1
+CANCEL_ATOL = 1e-5
+CANCEL_ADD, CANCEL_DELETE = 500, 100
+#: phase 10: items and shards of the sharded database (every shard on the
+#: one card), items deleted after the first build, and the store's size
+#: limit. 4 x 25k, cut from 4 x 50k, whose phase took 88 s on an H100
+#: (700 W) against a budget of about 60; each shard still takes the bulk
+#: path (>= 8,192 items) and the search-seeded insertion (>= 16,384)
+N_SHARDED, N_SHARDS, SHARDED_DELETE = 100_000, 4, 400
+SHARDED_MAP_SIZE = 8 * 2**30
 #: index sets the timed launches rotate through (keeps rows out of L2)
 INDEX_SETS = 8
 TIMED_PAIRS = 5
@@ -389,22 +423,25 @@ def check_kernel(device) -> list[dict]:
     return cases
 
 
-def bench_data(rng: np.random.Generator) -> tuple[np.ndarray, np.ndarray]:
-    """``bench.py``'s clustered synthetic data: a Gaussian mixture with
-    n//256 centres, plus queries drawn around the same centres."""
-    n_clusters = max(32, N // 256)
+def bench_data(rng: np.random.Generator, n: int = 0) -> tuple[np.ndarray, np.ndarray]:
+    """``bench.py``'s clustered synthetic data: ``n`` items (``N`` when 0),
+    a Gaussian mixture with n//256 centres, plus queries drawn around the
+    same centres."""
+    n = n or N
+    n_clusters = max(32, n // 256)
     centers = rng.standard_normal((n_clusters, DIM)).astype(np.float32) * 4.0
-    assign = rng.integers(0, n_clusters, size=N)
-    data = (centers[assign] + rng.standard_normal((N, DIM))).astype(np.float32)
+    assign = rng.integers(0, n_clusters, size=n)
+    data = (centers[assign] + rng.standard_normal((n, DIM))).astype(np.float32)
     q_assign = rng.integers(0, n_clusters, size=N_QUERIES)
     queries = (centers[q_assign] + rng.standard_normal((N_QUERIES, DIM))).astype(np.float32)
     return data, queries
 
 
-def bench_append(n: int, seed: int = 43) -> np.ndarray:
-    """``n`` more items around ``bench_data``'s centres (seed 42 draws the
-    centres first; the items come from ``seed``)."""
-    n_clusters = max(32, N // 256)
+def bench_append(n: int, seed: int = 43, n_data: int = 0) -> np.ndarray:
+    """``n`` more items around the centres of ``bench_data(.., n_data)``
+    (seed 42 draws the centres first; the items come from ``seed``)."""
+    n_data = n_data or N
+    n_clusters = max(32, n_data // 256)
     centers = np.random.default_rng(42).standard_normal((n_clusters, DIM)).astype(np.float32) * 4.0
     rng = np.random.default_rng(seed)
     return (centers[rng.integers(0, n_clusters, size=n)] + rng.standard_normal((n, DIM))).astype(np.float32)
@@ -489,7 +526,7 @@ def profiled_build(device, data, label: str, **opts) -> dict:
     return out
 
 
-#: launches of the main path (phases 5-9) per form "row/family" → {"launches", "by_shape"}
+#: launches of the main path (phases 5-10) per form "row/family" → {"launches", "by_shape"}
 MAIN_PATH: dict[str, dict] = {}
 #: launches of the main path per (row type, kernel design)
 MAIN_DESIGNS: dict[tuple[str, str], int] = {}
@@ -1156,9 +1193,10 @@ def delete_filter_path(device, path: str, queries, card: str) -> dict:
     # ---- (b) filtered by_vecs: 0.5%, 1%, 10%, 50% of the items + 100 deleted ids ----
     live = reader.item_ids().to_array().astype(np.int64)
     q, qn = reader._prep_queries(queries)
+    cand_sets = {}
     for share in FILTER_SHARES:
         sel = np.random.default_rng(int(share * 1000) + 46).choice(live, int(round(share * len(live))), replace=False)
-        cands = np.concatenate([sel, doomed[:100]])
+        cands = cand_sets[share] = np.concatenate([sel, doomed[:100]])
         qb = reader.nns(K).ef_search(ef).candidates(cands)
         side = "linear scan" if reader._should_linear_scan(qb) else "filtered beam"
         with tracing.record() as spans:  # the warm-up; its spans say which side ran
@@ -1200,7 +1238,326 @@ def delete_filter_path(device, path: str, queries, card: str) -> dict:
     if out["by_items_recall_at_10"] < RECALL_BAR:
         raise AssertionError(f"[{label}] by_items recall@10 {out['by_items_recall_at_10']} below {RECALL_BAR}")
     out["launches"]["filtered_and_by_items"] = count_main_path(f"{label}: reopen, filtered search and by_items")
+
+    # ---- (d) cancellation of searches and of a build ----
+    kernel.reset_counts()
+    t0 = time.perf_counter()
+    out["cancel"] = cancel_checks(label, reader, queries, asked, cand_sets[CANCEL_FILTER_SHARE], set(doomed.tolist()), card)
+    out["launches"]["cancelled_searches"] = count_main_path(f"{label}: cancelled searches")
+    kernel.reset_counts()
+    out["cancel"]["build"] = cancelled_build(label, db, reader, queries, live, card)
+    out["launches"]["cancelled_build"] = count_main_path(f"{label}: cancelled build")
+    out["seconds"]["cancellation"] = time.perf_counter() - t0
+    print(f"[{label}] cancellation checks took {out['seconds']['cancellation']:.3f} s", flush=True)
     db.close()
+    return out
+
+
+class FireAt:
+    """A cancel closure that returns True at its ``n``-th call only (0:
+    never), and notes when that call came."""
+
+    def __init__(self, n: int):
+        self.n, self.calls, self.fired_at = n, 0, None
+
+    def __call__(self) -> bool:
+        self.calls += 1
+        if self.calls == self.n:
+            self.fired_at = time.perf_counter()
+            return True
+        return False
+
+
+def cancel_checks(label: str, reader, queries, items, cands, doomed: set, card: str) -> dict:
+    """Phase 9 (d), searches: ``by_vectors``, ``by_items`` and a filtered
+    ``by_vectors`` (``cands``) of the 256 queries / items, each with a
+    cancel that never fires — the uncancelled answers id for id and
+    distance for distance — and with one that fires at its 1st, 2nd and
+    4th check: ``did_cancel`` on every row, live ids only (candidates
+    only, never the item itself), sorted, each distance within
+    ``CANCEL_ATOL`` of ``flat_topk``'s distance for that id."""
+    import torch
+
+    from hannoy_tpu_torch import flat_topk
+    from hannoy_tpu_torch.ops import distances
+
+    metric = distances.COSINE
+    device = reader._dev.vectors.device
+    g = reader._graph
+    live = set(reader.item_ids().to_array().tolist())
+    slots = torch.tensor([g.id_to_slot[int(i)] for i in items], device=device).long()
+    q, qn = reader._prep_queries(queries)
+    allowed = set(int(i) for i in cands) & live
+    calls = {
+        "by_vectors": (lambda c: reader.nns(K).ef_search(EF_SWEEP[-1]).by_vectors_with_cancellation(queries, c),
+                       lambda: reader.nns(K).ef_search(EF_SWEEP[-1]).by_vectors(queries), (q, qn), live),
+        "by_items": (lambda c: reader.nns(K).ef_search(EF_SWEEP[-1]).by_items_with_cancellation(items, c),
+                     lambda: reader.nns(K).ef_search(EF_SWEEP[-1]).by_items(items),
+                     (reader._dev.vectors[slots], reader._dev.norms[slots]), live),
+        "filtered": (lambda c: reader.nns(K).ef_search(EF_SWEEP[-1]).candidates(cands).by_vectors_with_cancellation(queries, c),
+                     lambda: reader.nns(K).ef_search(EF_SWEEP[-1]).candidates(cands).by_vectors(queries), (q, qn), allowed),
+    }
+    out = {}
+    for name, (cancelled, plain, (cq, cqn), ok_ids) in calls.items():
+        never = FireAt(0)
+        if [s.nns for s in cancelled(never)] != [s.nns for s in plain()]:
+            raise AssertionError(f"[{label}] {name}: a cancel that never fires changed the answers")
+        cell = out[name] = {"checks_when_never_fired": never.calls}
+        for k in CANCEL_AT:
+            rows = cancelled(FireAt(k))
+            # the exact distance of every returned id: flat_topk over a
+            # per-row mask of just those ids
+            mask = torch.zeros((len(rows), reader._dev.vectors.shape[0]), dtype=torch.bool, device=device)
+            for b, s in enumerate(rows):
+                if s.nns:
+                    mask[b, torch.tensor([g.id_to_slot[i] for i, _ in s.nns], device=device).long()] = True
+            ed, es = flat_topk(metric.name, cq, cqn, reader._dev.vectors, reader._dev.norms, mask, K)
+            ed, es = ed.cpu().numpy(), es.cpu().numpy()
+            err = 0.0
+            for b, s in enumerate(rows):
+                ids = [i for i, _ in s.nns]
+                ds = [d for _, d in s.nns]
+                exact = {int(g.ids[sl]): float(d) for sl, d in zip(es[b], ed[b]) if sl >= 0}
+                if not s.did_cancel or not set(ids) <= ok_ids or set(ids) & doomed or ds != sorted(ds):
+                    raise AssertionError(f"[{label}] {name}, cancel at check {k}: row {b} is not a valid partial row")
+                if name == "by_items" and items[b] in ids:
+                    raise AssertionError(f"[{label}] by_items, cancel at check {k}: an item came back for itself")
+                err = max([err] + [abs(d - exact[i]) for i, d in s.nns])
+            if err > CANCEL_ATOL:
+                raise AssertionError(f"[{label}] {name}, cancel at check {k}: a distance {err} off the exact one")
+            cell[f"at_{k}"] = {"rows_with_items": sum(bool(s.nns) for s in rows),
+                               "items": sum(len(s.nns) for s in rows), "max_abs_err": err}
+        print(f"[{label}] cancelled {name}: never-firing = uncancelled ({never.calls} checks); fired at check "
+              + ", ".join(f"{k}: {cell[f'at_{k}']['items']} items in {cell[f'at_{k}']['rows_with_items']} rows, "
+                          f"max err {cell[f'at_{k}']['max_abs_err']:.2e}" for k in CANCEL_AT) + f" ({card})", flush=True)
+    return out
+
+
+def cancelled_build(label: str, db, reader, queries, live, card: str) -> dict:
+    """Phase 9 (d), a build: add 500 items and delete 100, then a build
+    whose cancel fires at its 3rd check must raise ``BuildCancelled``;
+    after ``abort_rw_txn`` a new Reader gives the answers of before."""
+    from hannoy_tpu_torch.errors import BuildCancelled
+
+    before = reader.by_vecs(queries, n=K, ef_search=EF_SWEEP[-1])
+    writer = db.writer(dimensions=DIM, m=M, ef=EFC)
+    new_ids = np.arange(N + N_APPEND + N_DELETE, N + N_APPEND + N_DELETE + CANCEL_ADD)
+    writer.add_items(new_ids, bench_append(CANCEL_ADD, seed=48))
+    for i in np.random.default_rng(49).choice(live, CANCEL_DELETE, replace=False).tolist():
+        if not writer.del_item(int(i)):
+            raise AssertionError(f"[{label}] item {i} was not there to delete")
+    fire = FireAt(3)
+    t0 = time.perf_counter()
+    try:
+        writer.builder(seed=42).cancel(fire).build()
+    except BuildCancelled:
+        raised = time.perf_counter()
+    else:
+        raise AssertionError(f"[{label}] the build whose cancel fired did not raise BuildCancelled")
+    if fire.fired_at is None or not db.abort_rw_txn():
+        raise AssertionError(f"[{label}] the cancel never fired, or there was no transaction to abort")
+    after = db.reader().by_vecs(queries, n=K, ef_search=EF_SWEEP[-1])
+    if after != before:
+        raise AssertionError(f"[{label}] after the cancelled build and the abort, the answers changed")
+    out = {"seconds_to_the_firing_check": fire.fired_at - t0, "seconds_firing_check_to_raise": raised - fire.fired_at}
+    print(f"[{label}] build of +{CANCEL_ADD} / -{CANCEL_DELETE} cancelled at its 3rd check, "
+          f"{out['seconds_to_the_firing_check']:.3f} s after it began: BuildCancelled "
+          f"{out['seconds_firing_check_to_raise'] * 1e3:.3f} ms after the firing check; aborted, and a new Reader "
+          f"gives the {N_QUERIES} answers of before ({card})", flush=True)
+    return out
+
+
+def _graph_bytes(dev) -> int:
+    """Device bytes of one ``DeviceGraph``'s tensors."""
+    return sum(t.numel() * t.element_size() for t in vars(dev).values() if hasattr(t, "element_size"))
+
+
+def sharded_path(device, card: str) -> dict:
+    """Phase 10: ``N_SHARDED`` x 768 cosine (``bench_data``, seed 42, n/256
+    centres) in ``N_SHARDS`` shards, every shard on ``device``, through
+    ``ShardedWriter`` / ``ShardedReader`` in a temporary directory:
+    (1) add → sequential build (``spmd=False``: each shard by the bulk
+    path) → commit; (2) ``ShardedReader`` → ``assert_validity`` → search of
+    the 256 queries at ef 100, recall@10 against ``flat_topk`` over every
+    item, QPS beside one shard's ``Reader.by_vecs``; (3) append 2,000
+    (seed 43) and delete 400, every shard's entry points among them →
+    lockstep build → commit; (4) a new ``ShardedReader``: no deleted id in
+    any answer, self-hit of the appended items, recall; (5) a lockstep
+    build whose cancel fires at its 2nd check raises ``BuildCancelled``,
+    and after the abort a new ``ShardedReader`` gives the answers of (4).
+    Every span is fenced and carries its kernel launches."""
+    import torch
+
+    from hannoy_tpu_torch import BuildOptions, Database, Metric, flat_topk
+    from hannoy_tpu_torch.errors import BuildCancelled
+    from hannoy_tpu_torch.ops import beam_cuda, distances
+    from hannoy_tpu_torch.parallel import ShardedReader, ShardedWriter
+    from hannoy_tpu_torch.utils import tracing
+
+    label = "phase 10: sharded build and serving"
+    kernel = beam_cuda.KERNEL
+    ef, S, n = EF_SWEEP[-1], N_SHARDS, N_SHARDED
+    devices = [device] * S
+    metric = distances.COSINE
+    out: dict = {"seconds": {}, "spans": {}, "launches": {}, "device_bytes": {}}
+
+    def recorded():
+        return tracing.record(fence=lambda: _sync(device), probe=lambda: kernel.launches)
+
+    def timed(what: str, fn):
+        return _timed(label, card, device, what, fn)
+
+    def recall(vectors, answers) -> float:
+        """recall@10 of ``answers`` against ``flat_topk`` over ``vectors``."""
+        q = torch.from_numpy(queries).to(device)
+        qn = torch.from_numpy(distances.np_norms(metric, queries)).to(device)
+        x = torch.from_numpy(vectors).to(device)
+        xn = torch.from_numpy(distances.np_norms(metric, vectors)).to(device)
+        exact_d, _ = flat_topk(metric.name, q, qn, x, xn, torch.ones(len(vectors), dtype=torch.bool, device=device), K)
+        kth = (exact_d[:, K - 1] + 1e-6).cpu().numpy()
+        del x, xn
+        if any(len(row) != K for row in answers):
+            raise AssertionError(f"[{label}] a query came back with fewer than {K} results")
+        return float(np.mean([[d <= kth[b] for _, d in row] for b, row in enumerate(answers)]))
+
+    data, queries = bench_data(np.random.default_rng(42), n)
+    with tempfile.TemporaryDirectory() as path:
+        # ---- (1) add → sequential build (bulk per shard) → commit ----
+        kernel.reset_counts()
+        db = Database(path, Metric.COSINE, map_size=SHARDED_MAP_SIZE)
+        writer = ShardedWriter(db, DIM, n_shards=S, m=M, ef=EFC, devices=devices)
+        _, out["seconds"]["add_items"] = timed(f"add_items of {n} x {DIM} into {S} shards",
+                                               lambda: writer.add_items(range(n), data))
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+        with recorded() as spans:
+            _, out["seconds"]["build"] = timed("sequential build, spmd=False (fenced spans)", lambda: writer.build(spmd=False))
+        out["device_bytes"]["build_peak"] = torch.cuda.max_memory_allocated(device) - base
+        out["spans"]["build"] = _print_spans(label, spans)
+        per_shard = [s.ms / 1e3 for s in spans if s.name == "build_graph"]
+        if len(per_shard) != S or sum(s.name == "bulk_build" for s in spans) != S:
+            raise AssertionError(f"[{label}] not every shard took the bulk path: {sorted({s.name for s in spans})}")
+        out["seconds"]["build_graph_per_shard"] = per_shard
+        print(f"[{label}] build_graph per shard {', '.join(f'{t:.3f}' for t in per_shard)} s, "
+              f"{out['seconds']['build']:.3f} s in all; device memory peak above the start "
+              f"{out['device_bytes']['build_peak'] / 2**30:.3f} GiB ({card})", flush=True)
+        _, out["seconds"]["commit"] = timed("commit_rw_txn", db.commit_rw_txn)
+        out["launches"]["sequential_build"] = count_main_path(f"{label}: sequential build")
+
+        # ---- (2) ShardedReader → validity → search, recall, QPS ----
+        kernel.reset_counts()
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+        reader, out["seconds"]["reader_open"] = timed("ShardedReader open", lambda: ShardedReader(db, S, devices=devices))
+        out["device_bytes"]["reader"] = torch.cuda.memory_allocated(device) - base
+        out["device_bytes"]["reader_peak"] = torch.cuda.max_memory_allocated(device) - base
+        out["device_bytes"]["per_shard_index"] = [_graph_bytes(g) for g in reader._index.graphs]
+        out["device_bytes"]["per_shard_reader"] = [_graph_bytes(r._dev) for r in reader._readers]
+        print(f"[{label}] device bytes: ShardedReader {out['device_bytes']['reader'] / 2**20:.1f} MiB in all "
+              f"(peak {out['device_bytes']['reader_peak'] / 2**20:.1f}); per shard, its graph in the sharded index "
+              f"{', '.join(f'{b / 2**20:.1f}' for b in out['device_bytes']['per_shard_index'])} MiB and in its own "
+              f"Reader {', '.join(f'{b / 2**20:.1f}' for b in out['device_bytes']['per_shard_reader'])} MiB ({card})",
+              flush=True)
+        if reader.n_items() != n:
+            raise AssertionError(f"[{label}] {reader.n_items()} items, expected {n}")
+        _, out["seconds"]["assert_validity"] = timed("ShardedReader.assert_validity", reader.assert_validity)
+        answers = reader.search(queries, n=K, ef_search=ef)
+        out["recall_at_10"] = recall(data, answers)
+        one = reader._readers[0]
+        for _ in range(2):
+            reader.search(queries, n=K, ef_search=ef)
+            one.by_vecs(queries, n=K, ef_search=ef)
+        t_sh = [one_call(device, lambda: reader.search(queries, n=K, ef_search=ef)) for _ in range(5)]
+        t_one = [one_call(device, lambda: one.by_vecs(queries, n=K, ef_search=ef)) for _ in range(5)]
+        out["qps"] = {"sharded_search": N_QUERIES / float(np.median(t_sh)), "one_shard_by_vecs": N_QUERIES / float(np.median(t_one))}
+        print(f"[{label}] search of {N_QUERIES} queries at ef={ef} over {S} shards: recall@10 {out['recall_at_10']:.4f} "
+              f"against flat_topk over all {n}; {out['qps']['sharded_search']:.1f} QPS (median of 5), one shard's "
+              f"Reader.by_vecs {out['qps']['one_shard_by_vecs']:.1f} QPS ({card})", flush=True)
+        if out["recall_at_10"] < RECALL_BAR:
+            raise AssertionError(f"[{label}] recall@10 {out['recall_at_10']} below {RECALL_BAR}")
+        out["launches"]["open_and_search"] = count_main_path(f"{label}: open and search")
+
+        # ---- (3) append 2,000 and delete 400 (every entry point) → lockstep build ----
+        kernel.reset_counts()
+        eps = sorted({int(e) for r in reader._readers for e in r._metadata.entry_points})
+        rest = np.setdiff1d(np.arange(n), eps)
+        doomed = np.sort(np.concatenate([eps, np.random.default_rng(44).choice(rest, SHARDED_DELETE - len(eps), replace=False)]))
+        extra = bench_append(N_APPEND, seed=43, n_data=n)
+        new_ids = np.arange(n, n + N_APPEND)
+        del reader, one
+        writer = ShardedWriter(db, DIM, n_shards=S, m=M, ef=EFC, devices=devices)
+
+        def churn():
+            writer.add_items(new_ids, extra)
+            for i in doomed.tolist():
+                if not writer.del_item(i):
+                    raise AssertionError(f"[{label}] item {i} was not there to delete")
+
+        _, out["seconds"]["add_and_del"] = timed(f"add_items of {N_APPEND} + del_item x {SHARDED_DELETE} "
+                                                 f"({len(eps)} entry points)", churn)
+        with recorded() as spans:
+            _, out["seconds"]["lockstep_build"] = timed("lockstep build (fenced spans)", writer.build)
+        out["spans"]["lockstep_build"] = sp = _print_spans(label, spans, skip=("insert_wave", "spmd_wave", "repair_level"))
+        waves = [s for s in spans if s.name == "spmd_wave"]
+        out["lockstep_waves"] = len(waves)
+        print(f"[{label}]   span spmd_wave: {len(waves)} lockstep waves of {S} shards, {sum(s.ms for s in waves):.2f} ms, "
+              f"kernel launches {sum(s.probed for s in waves)}", flush=True)
+        for need in ("spmd_waves", "repair_deletions", "load_graph"):
+            if need not in sp:
+                raise AssertionError(f"[{label}] the lockstep build did not go through {need}: {sorted(sp)}")
+        _, out["seconds"]["lockstep_commit"] = timed("commit_rw_txn", db.commit_rw_txn)
+        out["launches"]["lockstep_build"] = count_main_path(f"{label}: lockstep build")
+
+        # ---- (4) a new ShardedReader: no deleted id, self-hit, recall ----
+        kernel.reset_counts()
+        reader, out["seconds"]["reader_reopen"] = timed("ShardedReader open after the lockstep build",
+                                                        lambda: ShardedReader(db, S, devices=devices))
+        if reader.n_items() != n + N_APPEND - SHARDED_DELETE:
+            raise AssertionError(f"[{label}] {reader.n_items()} items after the lockstep build")
+        reader.assert_validity()
+        after = reader.search(queries, n=K, ef_search=ef)
+        dset = set(doomed.tolist())
+        if any(i in dset for row in after for i, _ in row):
+            raise AssertionError(f"[{label}] a deleted item came back in an answer")
+        survivors = np.concatenate([np.delete(data, doomed, axis=0), extra])
+        out["recall_at_10_after"] = recall(survivors, after)
+        firsts = reader.search(extra, n=1, ef_search=ef)
+        out["self_hit"] = float(np.mean([bool(row) and row[0][0] == int(new_ids[i]) for i, row in enumerate(firsts)]))
+        print(f"[{label}] after +{N_APPEND} / -{SHARDED_DELETE}: recall@10 {out['recall_at_10_after']:.4f}, no deleted "
+              f"id in {N_QUERIES} answers, the appended items find themselves first in {out['self_hit']:.4f} of rows "
+              f"({card})", flush=True)
+        if out["recall_at_10_after"] < RECALL_BAR or out["self_hit"] < SELF_HIT_BAR:
+            raise AssertionError(f"[{label}] recall@10 {out['recall_at_10_after']} or self-hit {out['self_hit']}")
+        out["launches"]["reopen_and_search"] = count_main_path(f"{label}: reopen and search")
+
+        # ---- (5) a lockstep build cancelled at its 2nd check ----
+        kernel.reset_counts()
+        writer = ShardedWriter(db, DIM, n_shards=S, m=M, ef=EFC, devices=devices)
+        writer.add_items(np.arange(n + N_APPEND, n + N_APPEND + 400), bench_append(400, seed=50, n_data=n))
+        for i in np.random.default_rng(51).choice(np.setdiff1d(np.arange(n), doomed), 100, replace=False).tolist():
+            writer.del_item(int(i))
+        fire = FireAt(2)
+        t0 = time.perf_counter()
+        try:
+            writer.build(opts=BuildOptions(ef_construction=EFC, cancel=fire))
+        except BuildCancelled:
+            raised = time.perf_counter()
+        else:
+            raise AssertionError(f"[{label}] the lockstep build whose cancel fired did not raise BuildCancelled")
+        if fire.fired_at is None or not db.abort_rw_txn():
+            raise AssertionError(f"[{label}] the cancel never fired, or there was no transaction to abort")
+        if ShardedReader(db, S, devices=devices).search(queries, n=K, ef_search=ef) != after:
+            raise AssertionError(f"[{label}] after the cancelled lockstep build and the abort, the answers changed")
+        out["cancel"] = {"seconds_to_the_firing_check": fire.fired_at - t0, "seconds_firing_check_to_raise": raised - fire.fired_at}
+        print(f"[{label}] lockstep build cancelled at its 2nd check {out['cancel']['seconds_to_the_firing_check']:.3f} s "
+              f"after it began: BuildCancelled {out['cancel']['seconds_firing_check_to_raise'] * 1e3:.3f} ms later; "
+              f"aborted, and a new ShardedReader gives the answers of before ({card})", flush=True)
+        out["launches"]["cancelled_build"] = count_main_path(f"{label}: cancelled lockstep build")
+        db.close()
+    total = sum(sum(step.values()) for step in out["launches"].values())
+    print(f"[{label}] kernel launches {total}: {json.dumps(out['launches'])}", flush=True)
+    if min(sum(step.values()) for name, step in out["launches"].items() if name != "cancelled_build") == 0:
+        raise AssertionError(f"[{label}] a step launched no kernel: {out['launches']}")
     return out
 
 
@@ -1261,7 +1618,7 @@ def main() -> int:
         print(f"{name} took {phase_s[name]:.1f} s", flush=True)
 
     if "--kernel-only" in sys.argv[1:]:  # a short first run of new kernel code: build, check, time, stop
-        print(f"chip_smoke --kernel-only: {len(cases)} cases agree with their twins; phases 4-9 not run", flush=True)
+        print(f"chip_smoke --kernel-only: {len(cases)} cases agree with their twins; phases 4-10 not run", flush=True)
         return 0
     torch.cuda.empty_cache()
     data, queries = bench_data(np.random.default_rng(42))
@@ -1287,6 +1644,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         deletes = delete_filter_path(device, api_dir, queries, card)  # phase 9
         lap("phase 9")
+    del data
+    torch.cuda.empty_cache()
+    sharded = sharded_path(device, card)  # phase 10
+    lap("phase 10")
 
     # the f32 cases beside their launches on the earlier paths
     for c in cases:
@@ -1311,7 +1672,7 @@ def main() -> int:
     for form in sorted({c["form"] for c in cases}):
         main = MAIN_PATH.get(form, {"launches": 0, "by_shape": {}})
         if main["launches"] == 0:
-            raise AssertionError(f"the main path (phases 5-9) never launched the kernel's {form} form: {MAIN_PATH}")
+            raise AssertionError(f"the main path (phases 5-10) never launched the kernel's {form} form: {MAIN_PATH}")
         own = [c for c in cases if c["form"] == form]
         for c in own:
             c["launches_main_path"] = main["by_shape"].get(f"{c['shape'][0]}x{c['shape'][1]}", 0)
@@ -1338,7 +1699,7 @@ def main() -> int:
     # three (which stay short): every timed case and every path's record
     print("detail " + json.dumps({"cases": cases, "phase_seconds": phase_s, "paths": {
         "wave_build": waves, "default_build": default, "api_path": api, "packed_path": packed, "tier_path": tiers,
-        "delete_filter_path": deletes}}))
+        "delete_filter_path": deletes, "sharded_path": sharded}}))
     kernels = {"kernels": entries}
     print(card_line())
     print(json.dumps(kernels))

@@ -12,9 +12,10 @@ reference's public surface:
 * the Rust library (``src/writer.rs``, ``src/reader.rs``): ``add_item`` /
   ``del_item`` / ``clear`` / ``need_build`` / ``contains_item`` /
   ``item_vector`` / ``iter`` / builder options (``ef_construction``,
-  ``alpha``, ``progress``) / ``force_rebuild``, and the
+  ``alpha``, ``cancel``, ``progress``) / ``force_rebuild``, and the
   ``Reader.nns(count)`` QueryBuilder (``ef_search``, ``candidates``,
-  ``linear_below``, ``by_vector(s)``, ``by_item(s)``).
+  ``linear_below``, ``by_vector(s)``, ``by_item(s)``, and their
+  ``*_with_cancellation`` variants, which return partial results).
 
 The on-disk store is the JAX package's, byte for byte: a directory written
 by either package opens in the other.
@@ -27,8 +28,12 @@ on it). Readers hold the index in device memory and answer
 batched queries (``by_vecs``); single-query calls are a batch of one, and
 each search brings its result to the host in one transfer.
 
-Not ported yet (ROADMAP.md queue 1; the names are absent, not stubs):
-cancellation.
+A search's ``cancel`` closure is checked before it starts, wherever the
+device loops come back to the host, and once more after them (the JAX
+package's rule): once it has returned True the search stops, and every
+row holds what its pool held then (``did_cancel``). A build's closure
+(``HannoyBuilder.cancel``) raises ``BuildCancelled``; the transaction can
+then be aborted, and the half-built graph is dropped from the cache.
 """
 
 from __future__ import annotations
@@ -38,7 +43,7 @@ import os
 import struct
 import threading
 from dataclasses import dataclass
-from typing import Iterator, Optional, Sequence
+from typing import Callable, Iterator, Optional, Sequence
 
 import numpy as np
 import torch
@@ -157,7 +162,8 @@ class Searched:
     reference's natural termination condition (best unexpanded > worst
     pooled); callers can retry with a larger ``ef_search``. Results are
     still valid nearest-so-far (and the degraded top-up has already run).
-    ``did_cancel`` is always False until cancellation is ported."""
+    ``did_cancel``: the search's cancel closure fired; the row holds the
+    live items its search had found by then, sorted, with no top-up."""
 
     nns: list[tuple[int, float]]
     did_cancel: bool = False
@@ -326,6 +332,12 @@ class HannoyBuilder:
 
     def alpha(self, alpha: float) -> "HannoyBuilder":
         self._opts.alpha = alpha
+        return self
+
+    def cancel(self, fn: Callable[[], bool]) -> "HannoyBuilder":
+        """Build cancellation: ``fn`` is checked throughout the build, which
+        raises ``BuildCancelled`` once it returns True."""
+        self._opts.cancel = fn
         return self
 
     def progress(self, sink) -> "HannoyBuilder":
@@ -624,24 +636,36 @@ class Writer:
         return g
 
     def _build(self, opts: _builder.BuildOptions, m=None, m0=None) -> BuildStats:
-        with span("build_prologue"):
-            plan = self._build_prologue(opts, m=m, m0=m0)
-        stats = BuildStats()
+        try:
+            with span("build_prologue"):
+                plan = self._build_prologue(opts, m=m, m0=m0)
+            stats = BuildStats()
 
-        # 4. device build
-        if plan.built:
-            with span(
-                "build_graph",
-                inserts=len(plan.insert_slots),
-                deletes=len(plan.delete_slots),
-            ):
-                _builder.build_graph(
-                    plan.g, plan.insert_slots, plan.delete_slots, opts, stats,
-                    device=self._database._device, tier=self._database._tier,
-                )
+            # 4. device build
+            if plan.built:
+                with span(
+                    "build_graph",
+                    inserts=len(plan.insert_slots),
+                    deletes=len(plan.delete_slots),
+                ):
+                    _builder.build_graph(
+                        plan.g, plan.insert_slots, plan.delete_slots, opts, stats,
+                        device=self._database._device, tier=self._database._tier,
+                    )
 
-        with span("build_epilogue"):
-            return self._build_epilogue(plan, opts, stats)
+            with span("build_epilogue"):
+                return self._build_epilogue(plan, opts, stats)
+        except BaseException:
+            self._forget_graph()
+            raise
+
+    def _forget_graph(self) -> None:
+        """Drop this index's graph from the cache and the transaction: a
+        build that raised (``BuildCancelled``) left it half-built, so the
+        next build or Reader loads it from the store again."""
+        self._database._env._graph_cache.pop(self._cache_key, None)
+        txn = self._database._env._shared_wtxn
+        getattr(txn, "_pending_graphs", {}).pop(self._cache_key, None)
 
     def _build_prologue(self, opts: _builder.BuildOptions, m=None, m0=None) -> "_BuildPlan":
         """Steps 1-3 of a build: journal scan, set algebra, graph staging."""
@@ -935,6 +959,9 @@ class QueryBuilder:
     def by_vector(self, vector: Sequence[float]) -> Searched:
         return self._reader._nns_by_vec(self, np.asarray(vector, dtype=np.float32))
 
+    def by_vector_with_cancellation(self, vector: Sequence[float], cancel_fn: Callable[[], bool]) -> Searched:
+        return self._reader._nns_by_vec(self, np.asarray(vector, dtype=np.float32), cancel_fn)
+
     def by_vectors(self, vectors) -> list[Searched]:
         """Batched search — every option (candidates filter, linear scan,
         ef) applies to each query exactly as the reference applies them
@@ -942,14 +969,29 @@ class QueryBuilder:
         device."""
         return self._reader._nns_by_vecs(self, np.asarray(vectors, dtype=np.float32))
 
+    def by_vectors_with_cancellation(self, vectors, cancel_fn: Callable[[], bool]) -> list[Searched]:
+        """``by_vectors`` with ``cancel_fn`` checked before the search,
+        wherever its loops come back to the host, and after them; once it
+        has returned True every row holds what its search had found then,
+        with ``did_cancel=True`` (reader.rs:167-188 per query)."""
+        return self._reader._nns_by_vecs(self, np.asarray(vectors, dtype=np.float32), cancel_fn)
+
     def by_item(self, item: int) -> Optional[Searched]:
         return self._reader._nns_by_item(self, int(item))
+
+    def by_item_with_cancellation(self, item: int, cancel_fn: Callable[[], bool]) -> Optional[Searched]:
+        return self._reader._nns_by_item(self, int(item), cancel_fn)
 
     def by_items(self, items) -> list[Optional[Searched]]:
         """Batched per-item lookup: each row runs the layer-0 beam seeded
         at its item's own slot, never returns the item itself, and honours
         every option; a missing item gives ``None`` at its position."""
         return self._reader._nns_by_items(self, items)
+
+    def by_items_with_cancellation(self, items, cancel_fn: Callable[[], bool]) -> list[Optional[Searched]]:
+        """``by_items`` with ``cancel_fn`` checked as in
+        ``by_vectors_with_cancellation`` (reader.rs:263-280)."""
+        return self._reader._nns_by_items(self, items, cancel_fn)
 
 
 class Reader:
@@ -1054,29 +1096,34 @@ class Reader:
         return self.nns(n).ef_search(ef_search).by_vector(query).into_nns()
 
     def by_vecs(
-        self, queries: np.ndarray, n: int = 10, ef_search: int = 200, candidates=None
+        self, queries: np.ndarray, n: int = 10, ef_search: int = 200, candidates=None, cancel=None
     ) -> list[list[tuple[int, float]]]:
         """Batched search — the throughput path: the whole batch is one
         search on the device, ``candidates`` filters the results (and
-        sends small sets to the exact linear scan), and deficient rows get
-        the degraded-search completion (reader.rs:771-795). For per-row
-        ``Searched`` flags (truncated) use ``reader.nns(n).by_vectors(...)``."""
+        sends small sets to the exact linear scan), ``cancel`` can stop it
+        early (each row keeps what it found), and deficient rows of a
+        search that ran to its end get the degraded-search completion
+        (reader.rs:771-795). For per-row ``Searched`` flags (did_cancel,
+        truncated) use ``reader.nns(n).by_vectors(...)``."""
         qb = self.nns(n).ef_search(max(ef_search, n))
         if candidates is not None:
             qb = qb.candidates(candidates)
+        if cancel is not None:
+            return [s.nns for s in qb.by_vectors_with_cancellation(queries, cancel)]
         return [s.nns for s in qb.by_vectors(queries)]
 
     def by_items(
-        self, items, n: int = 10, ef_search: int = 200, candidates=None
+        self, items, n: int = 10, ef_search: int = 200, candidates=None, cancel=None
     ) -> list[Optional[list[tuple[int, float]]]]:
         """``by_vecs``' sibling for item ids: each row is seeded at its own
-        item, never returns it, and honours ``candidates``; a missing item
-        gives ``None`` at its position (the reference loops its by-item
-        search per item, reader.rs:809-894)."""
+        item, never returns it, and honours ``candidates`` and ``cancel``;
+        a missing item gives ``None`` at its position (the reference loops
+        its by-item search per item, reader.rs:809-894)."""
         qb = self.nns(n).ef_search(max(ef_search, n))
         if candidates is not None:
             qb = qb.candidates(candidates)
-        return [None if s is None else s.nns for s in qb.by_items(items)]
+        searched = qb.by_items_with_cancellation(items, cancel) if cancel is not None else qb.by_items(items)
+        return [None if s is None else s.nns for s in searched]
 
     # -- internals ----------------------------------------------------------
     def _prep_queries(self, queries: np.ndarray) -> tuple[torch.Tensor, torch.Tensor]:
@@ -1139,14 +1186,15 @@ class Reader:
         item_ids = self.item_ids()
         return not item_ids or (opt._candidates is not None and item_ids.isdisjoint(opt._candidates))
 
-    def _nns_by_vec(self, opt: QueryBuilder, vector: np.ndarray) -> Searched:
-        return self._nns_by_vecs(opt, vector[None, :])[0]
+    def _nns_by_vec(self, opt: QueryBuilder, vector: np.ndarray, cancel=None) -> Searched:
+        return self._nns_by_vecs(opt, vector[None, :], cancel)[0]
 
-    def _nns_by_vecs(self, opt: QueryBuilder, vectors: np.ndarray) -> list[Searched]:
+    def _nns_by_vecs(self, opt: QueryBuilder, vectors: np.ndarray, cancel=None) -> list[Searched]:
         """Batched QueryBuilder execution — one search on the device serves
         the whole batch; every option applies per query (reader.rs:60-261):
         an empty index or candidates disjoint from it give empty rows, a
-        small candidate set the exact scan, any other the graph search."""
+        small candidate set the exact scan, any other the graph search.
+        ``cancel``: the caller's cancel closure, or None."""
         vectors = np.atleast_2d(vectors)
         if vectors.shape[-1] != self.dimensions():
             raise InvalidVecDimension(self.dimensions(), vectors.shape[-1])
@@ -1154,15 +1202,15 @@ class Reader:
             return [Searched([], False) for _ in range(vectors.shape[0])]
         q, qn = self._prep_queries(vectors)
         if self._should_linear_scan(opt):
-            return self._brute_force(q, qn, opt._candidates, opt._count)
-        return self._hnsw_search(q, qn, opt)
+            return self._brute_force(q, qn, opt._candidates, opt._count, cancel)
+        return self._hnsw_search(q, qn, opt, cancel)
 
-    def _nns_by_item(self, opt: QueryBuilder, item: int) -> Optional[Searched]:
+    def _nns_by_item(self, opt: QueryBuilder, item: int, cancel=None) -> Optional[Searched]:
         """Layer-0 search seeded at the item, excluding it
         (reader.rs:809-894): the batch of one of ``_nns_by_items``."""
-        return self._nns_by_items(opt, [item])[0]
+        return self._nns_by_items(opt, [item], cancel)[0]
 
-    def _nns_by_items(self, opt: QueryBuilder, items) -> list[Optional[Searched]]:
+    def _nns_by_items(self, opt: QueryBuilder, items, cancel=None) -> list[Optional[Searched]]:
         """Batched per-item lookup (the reference loops reader.rs:809-894
         per item; here the batch rides one search).
 
@@ -1171,7 +1219,8 @@ class Reader:
         the pool one wider than ``count``, so that dropping the item itself
         on the host (reader.rs:839-842) still leaves ``count`` results. A
         small candidate set takes the exact scan over the candidates but
-        the item. Missing items give ``None`` at their position."""
+        the item. Missing items give ``None`` at their position; ``cancel``
+        as in ``_hnsw_search``."""
         items = [int(i) for i in items]
         out: list[Optional[Searched]] = [None] * len(items)
         if self._nothing_to_find(opt):
@@ -1187,6 +1236,10 @@ class Reader:
 
         if self._should_linear_scan(opt):
             # exact scan per row over the candidates but the item (reader.rs:668-711)
+            if cancel is not None and cancel():
+                for b in present:
+                    out[b] = Searched([], True)
+                return out
             masks = np.broadcast_to(self._candidate_mask(opt._candidates), (len(present), self._graph.capacity)).copy()
             masks[np.arange(len(present)), pslots] = False
             rows = self._flat(q, qn, masks, opt._count)
@@ -1199,9 +1252,15 @@ class Reader:
             cand = self._graph.valid_mask()
         ef = max(opt._ef, opt._count + 1)  # the item may take one pool entry
         max_iters = 2 * ef + 16
+        latch = _Latch(cancel) if cancel is not None else None
+        if latch is not None and latch():
+            for b in present:
+                out[b] = Searched([], True)
+            return out
         with span("reader_search", queries=len(present), ef=ef):
             res = _beam.beam_search_filtered(
-                self._dev, q, qn, sel[:, None], ef, torch.from_numpy(cand).to(device), max_iters=max_iters
+                self._dev, q, qn, sel[:, None], ef, torch.from_numpy(cand).to(device), max_iters=max_iters,
+                cancel=latch,
             )
             k = min(opt._count + 1, ef)
             dists, slots, active, iters = self._to_host(
@@ -1209,11 +1268,13 @@ class Reader:
             )
         trunc = active.astype(bool) & (int(iters[0]) >= max_iters)
         rows = self._collect(slots, dists, opt._count + 1)
+        cancelled = latch is not None and latch()  # the final check (JAX beam.py:565)
         searched = [
-            Searched([(i, d) for i, d in rows[r] if i != pitems[r]][: opt._count], False, bool(trunc[r]))
+            Searched([(i, d) for i, d in rows[r] if i != pitems[r]][: opt._count], cancelled, bool(trunc[r]))
             for r in range(len(present))
         ]
-        searched = self._top_up(searched, q, qn, opt, exclude_rows=[{i} for i in pitems])
+        if not cancelled:
+            searched = self._top_up(searched, q, qn, opt, exclude_rows=[{i} for i in pitems])
         for r, b in enumerate(present):
             out[b] = searched[r]
         return out
@@ -1229,17 +1290,30 @@ class Reader:
         dists, slots = self._to_host(d, s)
         return self._collect(slots, dists, count)
 
-    def _brute_force(self, q: torch.Tensor, qn: torch.Tensor, candidates: IdSet, count: int) -> list[Searched]:
-        """reader.rs:668-711 — the exact scan over the candidate set, batched."""
+    def _brute_force(
+        self, q: torch.Tensor, qn: torch.Tensor, candidates: IdSet, count: int, cancel=None
+    ) -> list[Searched]:
+        """reader.rs:668-711 — the exact scan over the candidate set,
+        batched; a cancel that fires before it gives empty rows."""
+        if cancel is not None and cancel():
+            return [Searched([], True) for _ in range(int(q.shape[0]))]
         return [Searched(nns, False) for nns in self._flat(q, qn, self._candidate_mask(candidates), count)]
 
-    def _hnsw_search(self, q: torch.Tensor, qn: torch.Tensor, opt: QueryBuilder) -> list[Searched]:
+    def _hnsw_search(self, q: torch.Tensor, qn: torch.Tensor, opt: QueryBuilder, cancel=None) -> list[Searched]:
         """reader.rs:722-800: descent, layer-0 beam (filtered when the
         builder has candidates), degraded top-up — batched; every query in
-        ``q`` rides the same search."""
+        ``q`` rides the same search.
+
+        ``cancel`` (reader.rs:263-280): checked before the search — firing
+        there gives empty rows — then by the search's loops and once more
+        after them. Once it has fired, every row holds the live items its
+        pool held, sorted, with ``did_cancel=True`` and no top-up."""
         B = int(q.shape[0])
         if B == 0:
             return []
+        latch = _Latch(cancel) if cancel is not None else None
+        if latch is not None and latch():
+            return [Searched([], True) for _ in range(B)]
         ef = max(opt._ef, opt._count)
         max_iters = 2 * ef + 16
         efu = (
@@ -1250,9 +1324,11 @@ class Reader:
         with span("reader_search", queries=B, ef=ef):
             if opt._candidates is not None:
                 mask = torch.from_numpy(self._candidate_mask(opt._candidates)).to(self._database._device)
-                res = _beam.hnsw_search_filtered(self._dev, q, qn, mask, ef, max_iters=max_iters, ef_upper=efu)
+                res = _beam.hnsw_search_filtered(
+                    self._dev, q, qn, mask, ef, max_iters=max_iters, ef_upper=efu, cancel=latch
+                )
             else:
-                res = _beam.hnsw_search(self._dev, q, qn, ef, max_iters=max_iters, ef_upper=efu)
+                res = _beam.hnsw_search(self._dev, q, qn, ef, max_iters=max_iters, ef_upper=efu, cancel=latch)
             # one transfer to the host: the kept columns of dists (as their
             # bits) and slots, each row's active flag, and the iteration count
             k = min(opt._count, res.slots.shape[1])
@@ -1263,10 +1339,13 @@ class Reader:
         # improving when the iteration cap cut the loop — one slow query
         # does not stamp the whole batch.
         trunc = active.astype(bool) & (int(iters[0]) >= max_iters)
+        cancelled = latch is not None and latch()  # the final check (JAX beam.py:772, 865)
         searched = [
-            Searched(nns, False, bool(trunc[b]))
+            Searched(nns, cancelled, bool(trunc[b]))
             for b, nns in enumerate(self._collect(slots, dists, opt._count))
         ]
+        if cancelled:
+            return searched
         return self._top_up(searched, q, qn, opt)
 
     def _top_up(
@@ -1339,6 +1418,20 @@ class Reader:
         assert link_owner_ids == set(item_ids), "every item must have links"
         for ep in self._metadata.entry_points:
             assert ep in item_ids
+
+
+class _Latch:
+    """A search's cancel closure, latched: once it has returned True the
+    search stays cancelled, whatever the closure says later."""
+
+    def __init__(self, fn: Callable[[], bool]):
+        self._fn = fn
+        self.fired = False
+
+    def __call__(self) -> bool:
+        if not self.fired:
+            self.fired = bool(self._fn())
+        return self.fired
 
 
 # --------------------------------------------------------------------------

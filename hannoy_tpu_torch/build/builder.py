@@ -10,10 +10,17 @@ Deleted slots are repaired after the waves (``_repair_deletions``, the
 reference's fill_gaps_from_deleted) and then cleared. Options outside the
 ported paths raise ``NotImplementedError`` rather than being substituted
 (see ``_check_supported``): link slack, chain seeding, ``beam_expand > 1``
-and ``traverse`` (knobs that default to off), and cancellation (not
-ported yet, ROADMAP.md queue 1). Every metric and storage tier builds
-(``build_graph(tier=)``). The bulk path runs with the JAX package's
-default knobs, kept as constants here and in ``bulk.py``.
+and ``traverse`` (knobs that default to off). Every metric and storage
+tier builds (``build_graph(tier=)``). The bulk path runs with the JAX
+package's default knobs, kept as constants here and in ``bulk.py``.
+
+``BuildOptions.cancel`` is checked before every wave, in every beam's
+loop (``beam._while_loop``), before every repair block and re-check
+round, and between the bulk path's steps and chunks (``cancel_probe``);
+once it returns True the build raises ``BuildCancelled``. The JAX package
+switches a cancellable build to a chunked construction beam and a
+chunked connect; the port keeps one algorithm, so a cancel that never
+fires gives the same graph as none.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..errors import BuildCancelled
 from ..models import hnsw
 from ..models.hnsw import DeviceGraph, HostGraph
 from ..ops import beam
@@ -73,8 +81,21 @@ def _ramp_width(W: int, n_active: int, divisor: int = 4) -> int:
 
 
 def _never_cancel() -> bool:
-    """Default cancel sentinel (the only one this port accepts)."""
+    """Default cancel closure: the build is never cancelled."""
     return False
+
+
+def cancel_probe(cancel: Callable[[], bool]) -> Callable[[], bool]:
+    """A build's check of its ``cancel`` closure: raises ``BuildCancelled``
+    once the closure returns True, else returns False (so it also serves
+    as a loop's ``cancel``, ``beam._while_loop``)."""
+
+    def probe() -> bool:
+        if cancel():
+            raise BuildCancelled()
+        return False
+
+    return probe
 
 
 @dataclasses.dataclass
@@ -115,7 +136,8 @@ class BuildOptions:
 
 def _check_supported(opts: BuildOptions) -> None:
     """Raise ``NotImplementedError`` for anything this port does not build
-    (every metric and storage tier is built, with or without deletions)."""
+    (every metric and storage tier is built, with or without deletions,
+    cancellable or not)."""
     for name, value, default in (
         ("link_slack", opts.link_slack, 0),
         ("chain_seeding", opts.chain_seeding, False),
@@ -124,8 +146,6 @@ def _check_supported(opts: BuildOptions) -> None:
     ):
         if value != default:
             raise NotImplementedError(f"BuildOptions.{name}={value!r} is not ported yet (ROADMAP.md queue 1)")
-    if opts.cancel is not _never_cancel:
-        raise NotImplementedError("cancellable builds are not ported yet (ROADMAP.md queue 1)")
 
 
 def prepare_entry_points(
@@ -282,9 +302,11 @@ def build_graph(
     ``deleted_slots`` rows still carry their old links (the reference
     deletes links *after* the build so the repair can splice through
     them, writer.rs:577-580). Raises ``NotImplementedError`` for what the
-    port does not build.
+    port does not build, and ``BuildCancelled`` once ``opts.cancel`` fires
+    (``g`` is then half-built: the caller drops it).
     """
     _check_supported(opts)
+    probe = cancel_probe(opts.cancel)
     stats = stats or BuildStats()
     device = torch.device(device)
     deleted_set = {int(s) for s in deleted_slots}
@@ -355,6 +377,7 @@ def build_graph(
     for lv, grp in groups:
         start = 0
         while start < len(grp):
+            probe()
             if bb_tab0 is not None:
                 # triangular visibility needs no ramp: full-width waves
                 w_pad = min(_WAVE_BUCKETS[-1], 1 << max(4, int(len(grp) - start - 1).bit_length()))
@@ -374,7 +397,7 @@ def build_graph(
                 dev, dirty, counters = _insert_wave(
                     dev, wave, lv, opts, n_active, node_ok, dirty, counters, g.m0,
                     n_real=len(chunk), flat_tabs=flat_tabs, flat0=flat0,
-                    flat_orders=flat_orders, flat_row_base=bb_base + start,
+                    flat_orders=flat_orders, flat_row_base=bb_base + start, cancel=probe,
                 )
             start += len(chunk)
             wave_ops.activate_wave(dev, torch.from_numpy(wave).to(device))
@@ -394,7 +417,7 @@ def build_graph(
         with span("bulk_build", inserts=len(slots), max_level=g.max_level):
             dev, dirty, counters = bulk.bulk_build(
                 g, dev, slots, lvls, opts, dirty, counters,
-                connect_mask=(lvls == 0) if backbone_on else None,
+                connect_mask=(lvls == 0) if backbone_on else None, probe=probe,
             )
         stats.waves += 1
         opts.progress.update(InsertItemsStep(total, total))
@@ -414,6 +437,7 @@ def build_graph(
     if len(slots) or deleted_set:
         with span("inbound_recheck"):
             for _round in range(12):
+                probe()
                 indeg_dev, outdeg_dev = wave_ops.layer0_degrees(dev, cap=g.m0)
                 indeg, outdeg = indeg_dev.cpu().numpy(), outdeg_dev.cpu().numpy()
                 valid_np = dev.valid.cpu().numpy()
@@ -460,7 +484,8 @@ def _repair_deletions(
 ) -> DeviceGraph:
     """Repair every row that links a deleted slot, in blocks of
     ``REPAIR_BLOCK`` owners (``wave_ops.repair_deleted_rows``), and mark
-    the repaired owners dirty.
+    the repaired owners dirty. ``opts.cancel`` is checked before every
+    block.
 
     Every stored layer is scanned, not only 0..max_level: a height reset
     (``prepare_entry_points``' case 1) can leave survivors' rows above the
@@ -469,6 +494,7 @@ def _repair_deletions(
     hnsw.rs:346-357). The owners are found on the device, in the order of
     the JAX package's host scan (ascending table row); owners that are
     themselves deleted are skipped (hnsw.rs:373-375)."""
+    probe = cancel_probe(opts.cancel)
     del_mask = torch.zeros(dev.capacity, dtype=torch.bool, device=dev.device)
     del_mask[deleted.long()] = True
     for level in range(dev.upper_links.shape[0] + 1):
@@ -490,6 +516,7 @@ def _repair_deletions(
         n_blocks = -(-n_aff // REPAIR_BLOCK)
         with span("repair_level", level=level, owners=n_aff, blocks=n_blocks):
             for start in range(0, n_aff, REPAIR_BLOCK):
+                probe()
                 block = torch.full((REPAIR_BLOCK,), -1, dtype=torch.int32, device=dev.device)
                 chunk = affected[start : start + REPAIR_BLOCK]
                 block[: chunk.shape[0]] = chunk
@@ -514,6 +541,7 @@ def _insert_wave(
     flat0: Optional[torch.Tensor] = None,
     flat_orders: Optional[dict] = None,
     flat_row_base: int = 0,
+    cancel: beam.Cancel = None,
 ):
     """Insert one wave: greedy descent to lv+1, then per-level candidates
     + prune + connect, chaining each level's pruned set as the next
@@ -522,7 +550,8 @@ def _insert_wave(
     ``flat_orders`` (the flat backbone) maps levels to the insertion rank
     of each table column, ``flat_row_base`` is the rank of wave row 0:
     candidates are then triangular, and ``flat0`` is the backbone's
-    level-0 table, used whatever the active count."""
+    level-0 table, used whatever the active count. ``cancel`` goes to the
+    descent's and the beams' loops."""
     wave_t = torch.from_numpy(wave).to(dev.device)
     backbone = flat_orders is not None
     use_flat = n_active <= FLAT_BOOTSTRAP and not backbone
@@ -543,7 +572,9 @@ def _insert_wave(
         # cannot be found again. (Items of higher levels run an
         # ef_construction-wide beam at their own top layer already.)
         ef_upper = beam.default_ef_upper(n_active, opts.ef_construction) if lv == 0 else 1
-        seeds = beam.descend_for_slots(dev, wave_t, dev.max_level, lv + 1, node_ok=node_ok, ef_upper=ef_upper)
+        seeds = beam.descend_for_slots(
+            dev, wave_t, dev.max_level, lv + 1, node_ok=node_ok, ef_upper=ef_upper, cancel=cancel
+        )
     else:
         seeds = dev.entry_slots[None, :].expand(wave.shape[0], -1)
     # Tail termination only on wide waves, sized from the REAL item count
@@ -574,6 +605,7 @@ def _insert_wave(
             flat_members=fm,
             flat_col_order=flat_orders.get(level) if backbone else None,
             flat_row_base=flat_row_base,
+            cancel=cancel,
         )
         seeds = selected
     return dev, dirty, counters

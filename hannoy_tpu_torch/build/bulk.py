@@ -24,8 +24,11 @@ backbone), and only the level-0 items are connected here.
 
 Only layer 0 is built here, with the JAX package's default knobs as the
 constants below: its bulk-built upper layers (``bulk_upper``), slot
-renumbering, random k-means init and the cancellable connect are not
-ported (``builder._check_supported`` raises for a cancel). The top-K is
+renumbering and random k-means init are not ported. A build's cancel
+probe (``builder.cancel_probe``) is called between k-means iterations,
+candidate and random-candidate chunks, and the chunks of connect passes 1
+and 3; the JAX package also swaps in a chunked pass-2 connect when a
+cancel is set, which the port does not (one algorithm). The top-K is
 exact where the JAX package uses ``lax.approx_max_k`` (exact off the TPU
 as well). Sums that the JAX package takes as one-hot products stay
 products here: a scatter-add of floats on CUDA sums in a different order
@@ -45,7 +48,7 @@ with scale 0).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -106,6 +109,11 @@ def eligible(metric, n_active: int, n_deleted: int, n_insert: int, opts) -> bool
     if opts.bulk is True:
         return n_insert > 1
     return n_insert >= opts.bulk_threshold
+
+
+def _no_probe() -> bool:
+    """The cancel probe of a build that cannot be cancelled."""
+    return False
 
 
 def _pad_to(a: np.ndarray, multiple: int, fill) -> np.ndarray:
@@ -213,6 +221,7 @@ def kmeans_partition(
     n_clusters: int,
     iters: int,
     rng: np.random.Generator,
+    probe: Callable[[], bool] = _no_probe,
 ) -> np.ndarray:
     """Cluster the member vectors on the device → assignment [n] (host).
 
@@ -235,6 +244,7 @@ def kmeans_partition(
     del geom, sv
     assign = None
     for _ in range(max(1, iters)):
+        probe()
         centroids, assign = _kmeans_step(dev, slots_pad, centroids)
     return assign[:n].cpu().numpy()
 
@@ -260,7 +270,7 @@ def _segment_centroids(dev: DeviceGraph, member_slots: np.ndarray, assign: np.nd
 # --------------------------------------------------------------------------
 
 
-def _brute_candidates(dev: DeviceGraph, member_slots: np.ndarray, K: int, chunk: int):
+def _brute_candidates(dev: DeviceGraph, member_slots: np.ndarray, K: int, chunk: int, probe=_no_probe):
     """Exact kNN candidates among the members, self excluded → (ids, dists)
     [n_pad, K], aligned with member positions (n padded to ``chunk``)."""
     metric = dev.metric
@@ -274,6 +284,7 @@ def _brute_candidates(dev: DeviceGraph, member_slots: np.ndarray, K: int, chunk:
     out_ids = torch.full((n_pad, K), NO_ID, dtype=torch.int32, device=dev.device)
     out_d = torch.full((n_pad, K), INF, device=dev.device)
     for p0 in range(0, n_pad, chunk):
+        probe()
         sl = slots[p0 : p0 + chunk]
         d = member_distances(metric, mvec[p0 : p0 + chunk], mnrm[p0 : p0 + chunk], mvec, mnrm)
         d = torch.where(col_ok[None, :], d, INF)
@@ -327,6 +338,7 @@ def _cluster_candidates(
     adj: np.ndarray,  # [Cp, A] adjacent pseudo-clusters (-1 pad)
     n: int,  # members (rows of the candidate tables)
     K: int,
+    probe: Callable[[], bool] = _no_probe,
 ):
     """Top-K candidates of every member from its pseudo-cluster's
     adjacency block, ``CAND_GROUP`` pseudo-clusters per step (one batched
@@ -346,6 +358,7 @@ def _cluster_candidates(
     x_d = torch.full((Cp, A), INF, device=device)
     row_g = torch.arange(G, device=device).repeat_interleave(S)[:, None]
     for c0 in range(0, Cp, G):
+        probe()
         sl, pos, ac = tab_s[c0 : c0 + G], tab_p[c0 : c0 + G], adj_t[c0 : c0 + G]
         cols = torch.where((ac >= 0)[:, :, None], tab_s[ac.clamp(min=0)], NO_ID).reshape(G, A * S)
         d = distances.block_distances(
@@ -373,7 +386,7 @@ def _cluster_candidates(
     return out_ids, out_d, x_src.reshape(-1), x_dst.reshape(-1), x_d.reshape(-1)
 
 
-def _random_candidates(dev: DeviceGraph, members: np.ndarray, rand_slots: np.ndarray) -> torch.Tensor:
+def _random_candidates(dev: DeviceGraph, members: np.ndarray, rand_slots: np.ndarray, probe=_no_probe) -> torch.Tensor:
     """Distances from each member to its R random members → [n, R] (INF
     for itself). These run through the gather-distance kernel."""
     metric, device = dev.metric, dev.device
@@ -381,13 +394,14 @@ def _random_candidates(dev: DeviceGraph, members: np.ndarray, rand_slots: np.nda
     rs_all = torch.tensor(rand_slots.astype(np.int32), device=device)
     out = torch.empty(rs_all.shape, dtype=torch.float32, device=device)
     for p0 in range(0, len(members), RAND_CHUNK):
+        probe()
         sl, rs = mem[p0 : p0 + RAND_CHUNK], rs_all[p0 : p0 + RAND_CHUNK]
         d = beam_cuda.gathered_distances(metric, dev.vectors, dev.norms, dev.vectors[_ix(sl)], dev.norms[_ix(sl)], rs)
         out[p0 : p0 + RAND_CHUNK] = torch.where((rs >= 0) & (rs != sl[:, None]), d, INF)
     return out
 
 
-def layer_candidates(dev: DeviceGraph, member_slots: np.ndarray, K: int, rng: np.random.Generator):
+def layer_candidates(dev: DeviceGraph, member_slots: np.ndarray, K: int, rng: np.random.Generator, probe=_no_probe):
     """Candidate lists of the members → (ids [n_pad, K], dists [n_pad, K],
     cross_edges or None), aligned with member positions. ``cross_edges``
     = (src, dst, d) of the closest boundary pair per (cluster, adjacent
@@ -396,12 +410,12 @@ def layer_candidates(dev: DeviceGraph, member_slots: np.ndarray, K: int, rng: np
     K = min(K, n - 1)
     if n <= BRUTE_MAX:
         with span("bulk_candidates", n=n, brute=1):
-            ids, d = _brute_candidates(dev, member_slots, K, chunk=min(4096, max(256, n)))
+            ids, d = _brute_candidates(dev, member_slots, K, chunk=min(4096, max(256, n)), probe=probe)
         return ids, d, None
 
     C = max(8, n // CLUSTER_SIZE)
     with span("bulk_kmeans", n=n, clusters=C):
-        assign = kmeans_partition(dev, member_slots, C, KMEANS_ITERS, rng)
+        assign = kmeans_partition(dev, member_slots, C, KMEANS_ITERS, rng, probe)
     s_cap = int(np.ceil(1.3 * n / C))
     tab_pos, parent = _pseudo_cluster_tables(assign, C, s_cap)
     Cp = tab_pos.shape[0]
@@ -417,7 +431,7 @@ def layer_candidates(dev: DeviceGraph, member_slots: np.ndarray, K: int, rng: np
         adj = _cluster_adjacency(dev.metric, centroids, parent, A)
         adj[Cp:] = -1  # padding rows select nothing
     with span("bulk_candidates", n=n, pseudo_clusters=Cp, s_cap=s_cap, adj=A):
-        ids, d, x_src, x_dst, x_d = _cluster_candidates(dev, tab_slots, tab_pos, adj, n, K)
+        ids, d, x_src, x_dst, x_d = _cluster_candidates(dev, tab_slots, tab_pos, adj, n, K, probe)
     return ids, d, (x_src, x_dst, x_d)
 
 
@@ -436,6 +450,7 @@ def _bulk_connect(
     cap: int,
     alpha: float,
     chunk: int,
+    probe: Callable[[], bool] = _no_probe,
 ):
     """The three connect passes at layer 0. Pass 2 and 3 read the pass-1
     selections from explicit tables: a row that absorbed reverse edges
@@ -446,6 +461,7 @@ def _bulk_connect(
     fwd_d = torch.full((n_pad, cap), INF, device=dev.device)
     with span("connect_pass1", n=n_pad, K=cand_ids.shape[1]):
         for p0 in range(0, n_pad, chunk):
+            probe()
             sl = member[p0 : p0 + chunk]
             ok = (sl >= 0)[:, None]
             sel_ids, sel_d = prune.robust_prune(
@@ -465,6 +481,7 @@ def _bulk_connect(
         dirty[member[member >= 0].long()] = True
     with span("connect_pass3", n=n_pad):
         for p0 in range(0, n_pad, chunk):
+            probe()
             dev, dirty, counters = wave_ops._ensure_inbound(
                 dev, member[p0 : p0 + chunk], fwd_ids[p0 : p0 + chunk], fwd_d[p0 : p0 + chunk], dirty, counters
             )
@@ -523,6 +540,7 @@ def bulk_build(
     dirty: torch.Tensor,
     counters: torch.Tensor,
     connect_mask: Optional[np.ndarray] = None,
+    probe: Callable[[], bool] = _no_probe,
 ) -> tuple[DeviceGraph, torch.Tensor, torch.Tensor]:
     """Build layer 0 of a fresh index from candidate lists.
 
@@ -532,6 +550,7 @@ def bulk_build(
     the backbone mode, where the level >= 1 items were already inserted at
     layer 0 by insertion waves, with the long edges that overwriting their
     rows would destroy. Reverse merges still extend backbone rows.
+    ``probe``: the build's cancel check (``builder.cancel_probe``).
     """
     rng = np.random.default_rng(opts.seed + 0x6B)
     K = max(opts.ef_construction, g_host.m0 + 16)
@@ -540,12 +559,12 @@ def bulk_build(
     n = len(members)
     if not n:
         return dev, dirty, counters
-    cand_ids, cand_d, cross = layer_candidates(dev, members, K, rng)
+    cand_ids, cand_d, cross = layer_candidates(dev, members, K, rng, probe)
     if n > 4 * K:
         # NSW-style long-edge candidates; the α-prune keeps the uncovered ones
         rand_slots = members[rng.integers(0, n, size=(n, RAND_CANDIDATES))].astype(np.int32)
         with span("bulk_random_candidates", n=n, r=RAND_CANDIDATES):
-            rd = _random_candidates(dev, members, rand_slots)
+            rd = _random_candidates(dev, members, rand_slots, probe)
         cand_ids = torch.cat([cand_ids[:n], torch.tensor(rand_slots, device=dev.device)], dim=1)
         cand_d, cand_ids = topk.sort_by_dist(torch.cat([cand_d[:n], rd], dim=1), cand_ids)
     members_c = members
@@ -561,7 +580,7 @@ def bulk_build(
     cand_ids = _fit_rows(cand_ids, len(slots_pad), NO_ID)
     cand_d = _fit_rows(cand_d, len(slots_pad), INF)
     dev, dirty, counters = _bulk_connect(
-        dev, slots_pad, cand_ids, cand_d, dirty, counters, cap=g_host.m0, alpha=alpha, chunk=chunk
+        dev, slots_pad, cand_ids, cand_d, dirty, counters, cap=g_host.m0, alpha=alpha, chunk=chunk, probe=probe
     )
     if cross is not None:
         with span("bulk_cross_links", pairs=int(cross[0].shape[0])):

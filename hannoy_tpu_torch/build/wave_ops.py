@@ -134,6 +134,7 @@ def wave_insert_level(
     flat_members: Optional[torch.Tensor] = None,  # [U] compact member slots (-1 pad)
     flat_col_order: Optional[torch.Tensor] = None,  # [U] insertion rank per column
     flat_row_base: int = 0,  # insertion rank of wave row 0
+    cancel: beam.Cancel = None,
 ) -> WaveLevelResult:
     """Insert one wave at one level (the batched hnsw.rs:312-327 body).
 
@@ -153,7 +154,8 @@ def wave_insert_level(
     3. deterministic reverse-edge merge with overflow α-prune;
     4. at layer 0, the stranded-insert guarantee (``_ensure_inbound``).
 
-    ``dirty`` and ``counters`` are updated in place.
+    ``dirty`` and ``counters`` are updated in place. ``cancel`` is handed
+    to the candidate beam (a build's closure raises when it fires).
     """
     metric = g.metric
     W = wave_slots.shape[0]
@@ -192,6 +194,7 @@ def wave_insert_level(
             node_ok=node_ok, level=level,
             traverse_k=cap if level == 0 else None,
             tail_allow=beam_tail_allow if level == 0 else 0,
+            cancel=cancel,
         )
         cand_ids, cand_d = res.slots, res.dists
         width = cap if level == 0 else g.upper_links.shape[-1]

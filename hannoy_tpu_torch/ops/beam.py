@@ -26,8 +26,13 @@ on the device as a ``go`` flag that gates each state update, so a row the
 JAX loop would have stopped is never expanded, and the host reads the flag
 only every ``SYNC_EVERY`` iterations.
 
-Not ported yet (ROADMAP.md queue 1): the cancellable runners, and
-``expand > 1``.
+Cancellation rides those reads. The JAX package runs a cancellable search
+in chunks of a jitted loop with its own runners
+(``hnsw_search_cancellable`` and its siblings); here every loop takes an
+optional ``cancel`` closure, called where the host reads the flag anyway:
+a search's closure returns True to stop the loop there (the pools so far
+are the partial answer), a build's raises ``BuildCancelled``. Without one
+the loops issue no extra host sync. ``expand > 1`` is not ported.
 """
 
 from __future__ import annotations
@@ -44,6 +49,9 @@ from .topk import INF, NO_ID
 SYNC_EVERY = 8
 
 State = tuple[torch.Tensor, ...]
+#: a loop's cancel closure: called at each host read of its flag; True
+#: stops the loop there (a build's closure raises instead)
+Cancel = Optional[Callable[[], bool]]
 
 
 def _while_loop(
@@ -51,17 +59,20 @@ def _while_loop(
     body: Callable[[State], State],
     state: State,
     max_iters: int,
+    cancel: Cancel = None,
 ) -> tuple[State, torch.Tensor]:
     """``lax.while_loop(cond & (it < max_iters), body, state)`` in eager
     PyTorch → (final state, int32 count of body executions).
 
     ``cond`` returns a 0-d bool tensor. Once it is false the state stops
     changing, exactly as in the JAX loop; the host stops issuing
-    iterations at the next check of the flag."""
+    iterations at the next check of the flag. ``cancel`` is called at
+    those checks while the loop still runs: True ends it there, with the
+    state as it stands."""
     go = cond(state)
     iters = torch.zeros((), dtype=torch.int32, device=go.device)
     for it in range(max_iters):
-        if it % SYNC_EVERY == 0 and not bool(go):
+        if it % SYNC_EVERY == 0 and (not bool(go) or (cancel is not None and cancel())):
             break
         new = body(state)
         state = tuple(torch.where(go, n, s) for n, s in zip(new, state))
@@ -125,11 +136,13 @@ def greedy_descend(
     to_level: int,
     max_steps_per_level: int = 128,
     node_ok: Optional[torch.Tensor] = None,
+    cancel: Cancel = None,
 ) -> torch.Tensor:
     """Descend layers ``from_level .. to_level`` (inclusive, both >= 1)
     greedily from the best entry point; returns the best slot per query
     → [B]. ``node_ok`` (default ``g.valid``) gates which slots the walk
-    may settle on — builders pass exists-and-not-deleted."""
+    may settle on — builders pass exists-and-not-deleted. A cancelled
+    walk returns where it stands."""
     if node_ok is None:
         node_ok = g.valid
     eps = g.entry_slots[None, :].expand(q.shape[0], -1)
@@ -139,7 +152,7 @@ def greedy_descend(
     cur = eps.gather(1, best)[:, 0]
     cur_d = d.gather(1, best)[:, 0]
     for level in range(from_level, to_level - 1, -1):
-        cur, cur_d = _greedy_level(g, q, qn, cur, cur_d, level, max_steps_per_level, node_ok)
+        cur, cur_d = _greedy_level(g, q, qn, cur, cur_d, level, max_steps_per_level, node_ok, cancel)
     return cur
 
 
@@ -152,6 +165,7 @@ def _greedy_level(
     level: int,
     max_steps: int,
     node_ok: torch.Tensor,
+    cancel: Cancel = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     slot_rows, upper = g.slot_rows[level - 1], g.upper_links[level - 1]
 
@@ -170,7 +184,7 @@ def _greedy_level(
         return torch.where(improved, best_nb, cur), torch.minimum(best_d, cur_d), improved
 
     init = (cur, cur_d, torch.ones_like(cur, dtype=torch.bool))
-    (cur, cur_d, _), _ = _while_loop(lambda s: s[2].any(), body, init, max_steps)
+    (cur, cur_d, _), _ = _while_loop(lambda s: s[2].any(), body, init, max_steps, cancel)
     return cur, cur_d
 
 
@@ -182,6 +196,7 @@ def descend_for_slots(
     max_steps_per_level: int = 128,
     node_ok: Optional[torch.Tensor] = None,
     ef_upper: int = 1,
+    cancel: Cancel = None,
 ) -> torch.Tensor:
     """Descent for a wave of *stored* items: gathers their vectors and
     walks layers ``from_level..to_level`` greedily → seed slots [W, 1].
@@ -189,7 +204,7 @@ def descend_for_slots(
     beam instead, as ``_descend_start`` does for a search → [W, ef_upper]."""
     q = g.vectors[_ix(wave_slots)]
     qn = g.norms[_ix(wave_slots)]
-    return _descend(g, q, qn, from_level, to_level, ef_upper, max_steps_per_level, node_ok)
+    return _descend(g, q, qn, from_level, to_level, ef_upper, max_steps_per_level, node_ok, cancel)
 
 
 def _descend(
@@ -201,17 +216,18 @@ def _descend(
     ef_upper: int = 1,
     max_steps_per_level: int = 128,
     node_ok: Optional[torch.Tensor] = None,
+    cancel: Cancel = None,
 ) -> torch.Tensor:
     """Seed slots for the layer below ``to_level`` → [B, S]: the greedy
     walk through ``from_level..to_level`` (``ef_upper == 1``), or greedy
     down to ``to_level + 1`` and an ``ef_upper``-wide beam at ``to_level``."""
     if ef_upper <= 1:
-        return greedy_descend(g, q, qn, from_level, to_level, max_steps_per_level, node_ok)[:, None]
+        return greedy_descend(g, q, qn, from_level, to_level, max_steps_per_level, node_ok, cancel)[:, None]
     if from_level > to_level:
-        start = greedy_descend(g, q, qn, from_level, to_level + 1, max_steps_per_level, node_ok)[:, None]
+        start = greedy_descend(g, q, qn, from_level, to_level + 1, max_steps_per_level, node_ok, cancel)[:, None]
     else:
         start = g.entry_slots[None, :].expand(q.shape[0], -1)
-    return beam_search(g, q, qn, start, ef_upper, node_ok=node_ok, level=to_level).slots
+    return beam_search(g, q, qn, start, ef_upper, node_ok=node_ok, level=to_level, cancel=cancel).slots
 
 
 # --------------------------------------------------------------------------
@@ -255,6 +271,7 @@ def beam_search(
     traverse_k: Optional[int] = None,
     tail_frac: float = 0.0,
     tail_allow: Optional[int] = None,
+    cancel: Cancel = None,
 ) -> BeamResult:
     """Unfiltered beam search at ``level`` (builders run it per layer,
     searches at layer 0).
@@ -264,6 +281,7 @@ def beam_search(
     ``tail_frac`` / ``tail_allow``: stop once at most this many queries
     are still active (0 = the reference's termination); builders size the
     allowance from the real item count of a wave.
+    ``cancel``: see ``_while_loop``; a cancelled beam returns its pool.
     """
     if max_iters is None:
         max_iters = 2 * ef + 16
@@ -273,7 +291,7 @@ def beam_search(
         tail_allow = int(tail_frac * q.shape[0])
     state = _seed_pool(g, q, qn, start, ef, node_ok)
     body, cond = _beam_step(g, q, qn, node_ok, ef, level, traverse_k, tail_allow)
-    (pool_d, pool_id, pool_exp), iters = _while_loop(cond, body, state, max_iters)
+    (pool_d, pool_id, pool_exp), iters = _while_loop(cond, body, state, max_iters, cancel)
     return BeamResult(pool_d, pool_id, iters, _rows_active(pool_d, pool_id, pool_exp))
 
 
@@ -353,19 +371,21 @@ def beam_search_filtered(
     candidate_mask: torch.Tensor,  # [N_pad] bool — allowed result slots
     max_iters: Optional[int] = None,
     node_ok: Optional[torch.Tensor] = None,
+    cancel: Cancel = None,
 ) -> BeamResult:
     """Candidate-filtered layer-0 beam search (reader.rs:322-365).
 
     The frontier traverses any live node; the result pool admits only
     candidates. A row continues while the frontier's best unexpanded entry
-    is no worse than the *result* pool's worst (reader.rs:329-336)."""
+    is no worse than the *result* pool's worst (reader.rs:329-336). A
+    cancelled beam returns its result pool."""
     if max_iters is None:
         max_iters = 2 * ef + 16
     if node_ok is None:
         node_ok = g.valid
     state = _filtered_seed_pools(g, q, qn, start, candidate_mask, node_ok, ef)
     body, cond = _filtered_step(g, q, qn, node_ok, candidate_mask, ef)
-    (fr_d, fr_id, fr_exp, res_d, res_id), iters = _while_loop(cond, body, state, max_iters)
+    (fr_d, fr_id, fr_exp, res_d, res_id), iters = _while_loop(cond, body, state, max_iters, cancel)
     return BeamResult(res_d, res_id, iters, _filtered_rows_active(fr_d, fr_id, fr_exp, res_d))
 
 
@@ -466,12 +486,16 @@ def hnsw_search(
     ef: int,
     max_iters: Optional[int] = None,
     ef_upper: int = 1,
+    cancel: Cancel = None,
 ) -> BeamResult:
     """Greedy descent from the entry points through layers L..1, then an
     ef-wide layer-0 beam (reference hnsw_search). ``ef_upper``: see
-    ``_descend_start``."""
+    ``_descend_start``. ``cancel`` is checked in the layer-0 beam, as the
+    JAX package's ``hnsw_search_cancellable`` checks it between the
+    beam's chunks (the descent runs whole); once it has returned True the
+    result is the pool so far."""
     start = _descend_start(g, q, qn, ef_upper)
-    return beam_search(g, q, qn, start, ef, max_iters)
+    return beam_search(g, q, qn, start, ef, max_iters, cancel=cancel)
 
 
 def hnsw_search_filtered(
@@ -482,9 +506,10 @@ def hnsw_search_filtered(
     ef: int,
     max_iters: Optional[int] = None,
     ef_upper: int = 1,
+    cancel: Cancel = None,
 ) -> BeamResult:
     """``hnsw_search`` with a candidates filter: the descent ignores the
     mask (upper layers route, reader.rs:739-752), the layer-0 beam is
-    ``beam_search_filtered``."""
+    ``beam_search_filtered``. ``cancel`` as in ``hnsw_search``."""
     start = _descend_start(g, q, qn, ef_upper)
-    return beam_search_filtered(g, q, qn, start, ef, candidate_mask, max_iters)
+    return beam_search_filtered(g, q, qn, start, ef, candidate_mask, max_iters, cancel=cancel)

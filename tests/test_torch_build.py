@@ -260,7 +260,6 @@ def test_whole_build_matches_jax(ref, name):
         dict(chain_seeding=True),
         dict(beam_expand=2),
         dict(traverse=8),
-        dict(cancel=lambda: False),
     ],
     ids=lambda c: next(iter(c)),
 )

@@ -489,3 +489,93 @@ def test_delete_and_filter_on_cuda_match_cpu(cuda, tmp_path):
     for (g, c), eq in zip(pairs, same):
         if eq:
             np.testing.assert_allclose([x for _, x in g.nns], [x for _, x in c.nns], rtol=1e-5, atol=1e-5)
+
+
+def test_cancel_mid_flight_on_cuda_matches_cpu(cuda, tmp_path):
+    """At 1500 x 32 cosine through ``Database``: searches whose cancel
+    never fires, fires at once, and fires at its 3rd check, on the card
+    against the same calls on the CPU. Never and at once: the same rows
+    up to the kernel's summation order (near-ties); at the 3rd check every
+    row on both devices is flagged, sorted, and holds each item at its
+    exact distance (numpy, 1e-5)."""
+    n, d = 1500, 32
+    rng = np.random.default_rng(12)
+    data = rng.standard_normal((n, d)).astype(np.float32)
+    queries = rng.standard_normal((64, d)).astype(np.float32)
+
+    def fire_at(k):
+        calls = [0]
+
+        def cancel():
+            calls[0] += 1
+            return calls[0] == k
+
+        return cancel
+
+    rows = {}
+    for name, kw in (("cpu", {"device": "cpu"}), ("cuda", {})):
+        db = Database(tmp_path / name, Metric.COSINE, **kw)
+        w = db.writer(d, m=8, ef=32)
+        w.add_items(range(n), data)
+        w.builder(seed=42).bulk(False).build()
+        db.commit_rw_txn()
+        r = db.reader()
+        rows[name] = {k: r.nns(10).ef_search(64).by_vectors_with_cancellation(queries, fire_at(k)) for k in (0, 1, 3)}
+        db.close()
+    metric = distances.COSINE
+    for name in rows:
+        assert all(s.did_cancel and s.nns == [] for s in rows[name][1])
+        assert not any(s.did_cancel for s in rows[name][0])
+        for b, s in enumerate(rows[name][3]):
+            ids = [i for i, _ in s.nns]
+            got = np.asarray([x for _, x in s.nns], dtype=np.float32)
+            assert s.did_cancel and ids and (np.diff(got) >= 0).all()
+            exact = distances.np_pairwise(metric, queries[b : b + 1], distances.np_norms(metric, queries[b : b + 1]),
+                                          data[ids], distances.np_norms(metric, data[ids]))[0]
+            np.testing.assert_allclose(got, exact, rtol=0, atol=1e-5)
+    same = np.mean([[i for i, _ in g.nns] == [i for i, _ in c.nns] for g, c in zip(rows["cuda"][0], rows["cpu"][0])])
+    print(f"cancellable search on cuda vs cpu: identical rows {same:.4f}")
+    assert same >= 0.95
+
+
+def test_sharded_search_and_lockstep_build_on_cuda_match_cpu(cuda, tmp_path):
+    """800 x 16 euclidean in 4 shards through ``ShardedWriter`` (lockstep
+    builds, a fresh one and one that adds 24 and deletes 16) and
+    ``ShardedReader``, with every shard on the card, against the same calls
+    with every shard on the CPU: items and metadata equal, links records
+    and answers up to the kernel's summation order, self-search exact."""
+    from hannoy_tpu_torch.parallel import ShardedReader, ShardedWriter
+
+    n, d, S = 800, 16, 4
+    rng = np.random.default_rng(13)
+    data = rng.standard_normal((n, d)).astype(np.float32)
+    extra = rng.standard_normal((24, d)).astype(np.float32)
+    records, answers = {}, {}
+    for name, kw in (("cpu", {"device": "cpu"}), ("cuda", {})):
+        devices = [torch.device(name)] * S
+        db = Database(tmp_path / name, Metric.EUCLIDEAN, **kw)
+        with ShardedWriter(db, d, n_shards=S, m=8, ef=48, devices=devices) as w:
+            w.add_items(range(n), data)
+        w = ShardedWriter(db, d, n_shards=S, m=8, ef=48, devices=devices)
+        w.add_items(range(n, n + 24), extra)
+        for i in range(16):
+            assert w.del_item(i)
+        w.build()
+        db.commit_rw_txn()
+        r = ShardedReader(db, n_shards=S, devices=devices)
+        r.assert_validity()
+        assert r.n_items() == n + 24 - 16
+        assert [row[0][0] for row in r.search(extra, n=1, ef_search=48)] == list(range(n, n + 24))
+        answers[name] = r.search(data[16:80], n=10, ef_search=48)
+        records[name] = dict(db._db.prefix_iter(db._env.read_txn(), b""))
+        db.close()
+    a, b = records["cpu"], records["cuda"]
+    assert a.keys() == b.keys()
+    assert all(a[k] == b[k] for k in a if k[2] != 2)  # items, metadata, version
+    share = float(np.mean([a[k] == b[k] for k in a if k[2] == 2]))
+    same = [[i for i, _ in g] == [i for i, _ in c] for g, c in zip(answers["cuda"], answers["cpu"])]
+    print(f"sharded on cuda vs cpu: identical links records {share:.4f}, answers {np.mean(same):.4f}")
+    assert share >= 0.95 and np.mean(same) >= 0.95
+    for (g, c), eq in zip(zip(answers["cuda"], answers["cpu"]), same):
+        if eq:
+            np.testing.assert_allclose([x for _, x in g], [x for _, x in c], rtol=1e-5, atol=1e-5)

@@ -22,7 +22,9 @@ def test_port_imports_with_jax_blocked():
         "hannoy_tpu_torch.build.wave_ops, hannoy_tpu_torch.ops.beam, hannoy_tpu_torch.ops.beam_cuda, "
         "hannoy_tpu_torch.models.flat, hannoy_tpu_torch.utils.tracing, hannoy_tpu_torch.api, "
         "hannoy_tpu_torch.store, hannoy_tpu_torch.store.native_env, hannoy_tpu_torch.version, "
-        "hannoy_tpu_torch.utils.idset; "
+        "hannoy_tpu_torch.utils.idset, hannoy_tpu_torch.parallel, hannoy_tpu_torch.parallel.mesh, "
+        "hannoy_tpu_torch.parallel.sharded, hannoy_tpu_torch.parallel.spmd_build, "
+        "hannoy_tpu_torch.parallel.sharded_api; "
         "assert hannoy_tpu_torch.Database is hannoy_tpu_torch.api.Database"
     )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=300)
@@ -40,6 +42,7 @@ def _imported_modules(path: Path) -> set[str]:
 
 def test_no_jax_or_reference_imports_in_port():
     assert len(PORT_FILES) > 10
+    assert {"mesh.py", "sharded.py", "spmd_build.py", "sharded_api.py"} <= {p.name for p in PORT_FILES}
     offenders = {
         str(p.relative_to(REPO)): sorted(m for m in _imported_modules(p) if m.split(".")[0] in ("jax", "jaxlib", "hannoy_tpu"))
         for p in PORT_FILES
