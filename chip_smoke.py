@@ -112,7 +112,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    → the lockstep build (``spmd_wave`` spans) → commit → a new
    ``ShardedReader``: no deleted id, self-hit >= 0.99, recall >= 0.93 → a
    lockstep build whose cancel fires at its 2nd check raises
-   ``BuildCancelled``, and after the abort the answers are those of before.
+   ``BuildCancelled``, and after the abort the answers are those of before;
+11. the build options on phase 4/5's data, each between two default
+   builds of its path: the wave path (``bulk=False``, wave 4096, the first
+   ``N_OPTION_WAVE`` = 50,000 items) with
+   ``beam_expand=2``, ``traverse=24``, ``link_slack=16`` and
+   ``chain_seeding`` (at least one chained wave); the bulk path with
+   ``bulk_renumber`` (the 256 answers equal the default build's
+   by item id and distance, and both graphs searched in turns for QPS),
+   ``bulk_backbone=False, bulk_upper=1`` (recall printed only),
+   ``backbone_flat=False`` and ``bulk_init="random"``: each build timed
+   with its waves, chained waves, beam iterations and kernel launches,
+   ``check_validity``, recall@10 at ef 100 >= 0.93 against ``flat_topk``;
+   then phase 10's database, reopened: +2,000 / -400 (every shard's entry
+   points among them) by the lockstep build with ``link_slack=8``
+   (``prune_slack_rows`` and the stranding re-check per shard) →
+   validity, no deleted id, recall, self-hit >= 0.99.
 
 The build seconds of phases 4 and 5 are the wall time of an unfenced
 ``build_graph``, ended by one ``torch.cuda.synchronize()``. The kernel's
@@ -125,11 +140,11 @@ kernel, and ``{"ok": true, "device": {...}}``; the line before them
 kernel line has one
 entry for each form of the kernel — row type (f32, bf16, int8, packed) ×
 family (dot: cosine; difference: euclidean, manhattan; popcount: the
-packed metrics) — with the launches that phases 5-10 made in that form,
+packed metrics) — with the launches that phases 5-11 made in that form,
 each step counted from 0, the kernel design that served them, and as its
 headline the phase-3 case of the shape those phases launch most. The run
 fails if a form was never launched, or if an f32, bf16 or int8 launch of
-phases 5-10 (all at 768-wide rows) did not take the staged design. Phase 3
+phases 5-11 (all at 768-wide rows) did not take the staged design. Phase 3
 also gives each case's per-pair floor (each pair's row read once) beside
 its bound. ``--kernel-only`` stops after phase 3. It needs no network
 and imports nothing of JAX.
@@ -161,6 +176,14 @@ REPAIR_SHAPE = (512, 64)
 #: the shapes timed for the tier and packed forms: wave hop, search hop,
 #: the bulk build's random candidates
 NEW_FORM_SHAPES = ((256, 32), (4096, 32), (8192, 8))
+#: the packed form's other shapes on the main path: the BQ wave hops of
+#: narrower waves and the descent's layer-1 beam
+PACKED_SHAPES = ((1024, 32), (128, 32))
+#: the build options' wave hops (phase 11), each row ending in a run of -1:
+#: ``traverse=24``, chain seeds [W, 1 + M0] and [W, 1 + M0 + 16] with
+#: ``link_slack=16``, and ``beam_expand=2``'s [W, 2·M0]; timed for f32
+#: cosine and euclidean, bf16 and int8 cosine, and BQ cosine
+OPTION_SHAPES = ((4096, 24), (4096, 33), (4096, 49), (4096, 64))
 PACKED_METRICS = ("hamming", "binary quantized cosine", "binary quantized euclidean", "binary quantized manhattan")
 #: phase 7: items of the HAMMING wave build
 N_HAMMING = 20_000
@@ -194,6 +217,25 @@ CANCEL_ADD, CANCEL_DELETE = 500, 100
 #: path (>= 8,192 items) and the search-seeded insertion (>= 16,384)
 N_SHARDED, N_SHARDS, SHARDED_DELETE = 100_000, 4, 400
 SHARDED_MAP_SIZE = 8 * 2**30
+#: phase 11: the build options, each built between two default builds of
+#: its path in the same call — the wave path (``bulk=False``, wave 4096) on
+#: the first N_OPTION_WAVE items (cut from 100k: phase 11 took ≈ 120 s
+#: there against a budget of 75), the bulk path on all N; the recall of
+#: ``bulk_upper=1`` is printed, not barred (the JAX package expects a
+#: bulk-built layer 1 to lose recall); QPS_TURNS searches of each of the
+#: plain and the renumbered bulk graph, in turns; the sharded churn of
+#: phase 10's layout with SHARDED_SLACK slack columns
+N_OPTION_WAVE = 50_000
+WAVE_OPTIONS = (("default", {}), ("beam_expand=2", {"beam_expand": 2}), ("traverse=24", {"traverse": 24}),
+                ("link_slack=16", {"link_slack": 16}), ("chain_seeding", {"chain_seeding": True}),
+                ("default again", {}))
+BULK_OPTIONS = (("default", {}), ("bulk_renumber", {"bulk_renumber": True}),
+                ("bulk_backbone=False,bulk_upper=1", {"bulk_backbone": False, "bulk_upper": 1}),
+                ("backbone_flat=False", {"backbone_flat": False}), ("bulk_init=random", {"bulk_init": "random"}),
+                ("default again", {}))
+UNBARRED = ("bulk_backbone=False,bulk_upper=1",)
+QPS_TURNS = 3
+SHARDED_SLACK = 8
 #: index sets the timed launches rotate through (keeps rows out of L2)
 INDEX_SETS = 8
 TIMED_PAIRS = 5
@@ -275,8 +317,10 @@ def pair_floor(b: int, k: int, row_bytes: int, q_bytes: int, header: bool) -> fl
     return (b * k * (row_bytes + head) + b * (q_bytes + head) + b * k * 8) / HBM_BYTES_PER_S * 1e3
 
 
-def _index_sets(gen, device, make_query, b: int, k: int):
-    """``INDEX_SETS`` × (q, qn, idx) with 5% of the indices at -1."""
+def _index_sets(gen, device, make_query, b: int, k: int, tails: bool = False):
+    """``INDEX_SETS`` × (q, qn, idx) with 5% of the indices at -1; with
+    ``tails``, each row also ends in a run of -1 of random length (a hop
+    over truncated rows or inactive expansions)."""
     import torch
 
     sets = []
@@ -284,6 +328,9 @@ def _index_sets(gen, device, make_query, b: int, k: int):
         q, qn = make_query(b)
         idx = torch.randint(0, N, (b, k), generator=gen, device=device, dtype=torch.int32)
         idx[torch.rand((b, k), generator=gen, device=device) < 0.05] = -1
+        if tails:
+            cut = torch.randint(1, k + 1, (b, 1), generator=gen, device=device)
+            idx[torch.arange(k, device=device)[None, :] >= cut] = -1
         sets.append((q, qn, idx))
     return sets
 
@@ -382,8 +429,9 @@ def check_kernel(device) -> list[dict]:
     for name in ("cosine", "euclidean", "manhattan"):
         metric = distances.by_name(name)
         norms = store.norm(dim=1) if name == "cosine" else zeros
-        for b, k in KERNEL_SHAPES + ((REPAIR_SHAPE,) if name != "manhattan" else ()):
-            sets = _index_sets(gen, device, f32_query(name), b, k)
+        shapes = KERNEL_SHAPES + ((REPAIR_SHAPE,) if name != "manhattan" else ())
+        for b, k in shapes + (OPTION_SHAPES if name != "manhattan" else ()):
+            sets = _index_sets(gen, device, f32_query(name), b, k, tails=(b, k) not in shapes)
             cases.append(kernel_case(metric, "f32", store, norms, sets, "abs" if name == "cosine" else "rel",
                                      DIM * 4, DIM * 4, DIM * (2 if name == "cosine" else 3)))
 
@@ -395,8 +443,9 @@ def check_kernel(device) -> list[dict]:
             rows, headers = hnsw.encode_tier(metric, host, distances.np_norms(metric, host), tier)
             t_rows = (rows if isinstance(rows, torch.Tensor) else torch.from_numpy(rows)).to(device)
             t_norms = torch.from_numpy(np.ascontiguousarray(headers)).to(device)
-            for b, k in NEW_FORM_SHAPES + ((REPAIR_SHAPE,) if name == "cosine" else ()):
-                sets = _index_sets(gen, device, f32_query(name), b, k)
+            shapes = NEW_FORM_SHAPES + ((REPAIR_SHAPE,) if name == "cosine" else ())
+            for b, k in shapes + (OPTION_SHAPES if name == "cosine" else ()):
+                sets = _index_sets(gen, device, f32_query(name), b, k, tails=(b, k) not in shapes)
                 pick = torch.randint(0, N, (b,), generator=gen, device=device)
                 cases.append(kernel_case(metric, tier, t_rows, t_norms, sets, "rel", DIM * elem, DIM * 4,
                                          DIM * (2 if name == "cosine" else 3),
@@ -416,8 +465,9 @@ def check_kernel(device) -> list[dict]:
             q = torch.randint(-(2**31), 2**31, (b, lanes), generator=gen, device=device, dtype=torch.int64).to(torch.int32)
             return q, torch.full((b,), fill, device=device)
 
-        for b, k in NEW_FORM_SHAPES:
-            sets = _index_sets(gen, device, packed_query, b, k)
+        extra = PACKED_SHAPES + (OPTION_SHAPES if name == "binary quantized cosine" else ())
+        for b, k in NEW_FORM_SHAPES + extra:
+            sets = _index_sets(gen, device, packed_query, b, k, tails=(b, k) in OPTION_SHAPES)
             cases.append(kernel_case(metric, "packed", packed, norms, sets,
                                      "ulp" if name == "binary quantized cosine" else "exact", lanes * 4, lanes * 4, lanes * 3))
     return cases
@@ -448,16 +498,17 @@ def bench_append(n: int, seed: int = 43, n_data: int = 0) -> np.ndarray:
 
 
 def stage(data):
-    """A host graph with ``data`` staged in slots 0..N-1, cosine."""
+    """A host graph with ``data`` staged in slots 0..len(data)-1, cosine."""
     from hannoy_tpu_torch import HostGraph
     from hannoy_tpu_torch.models.hnsw import slot_capacity
     from hannoy_tpu_torch.ops import distances
 
-    g = HostGraph.empty(distances.COSINE, DIM, M, M0, capacity=slot_capacity(N))
-    for i in range(N):
+    n = len(data)
+    g = HostGraph.empty(distances.COSINE, DIM, M, M0, capacity=slot_capacity(n))
+    for i in range(n):
         g.alloc_slot(i)
-    g.vectors[:N] = data
-    g.norms[:N] = distances.np_norms(distances.COSINE, data)
+    g.vectors[:n] = data
+    g.norms[:n] = distances.np_norms(distances.COSINE, data)
     return g
 
 
@@ -473,7 +524,7 @@ def timed_build(device, data, fence=None, **opts):
     t0 = time.perf_counter()
     with tracing.record(fence=fence) as spans:
         stats = build_graph(
-            g, np.arange(N, dtype=np.int64), np.empty(0, dtype=np.int64),
+            g, np.arange(len(data), dtype=np.int64), np.empty(0, dtype=np.int64),
             BuildOptions(ef_construction=EFC, wave_size=WAVE, **opts), device=device,
         )
         _sync(device)
@@ -526,7 +577,7 @@ def profiled_build(device, data, label: str, **opts) -> dict:
     return out
 
 
-#: launches of the main path (phases 5-10) per form "row/family" → {"launches", "by_shape"}
+#: launches of the main path (phases 5-11) per form "row/family" → {"launches", "by_shape"}
 MAIN_PATH: dict[str, dict] = {}
 #: launches of the main path per (row type, kernel design)
 MAIN_DESIGNS: dict[tuple[str, str], int] = {}
@@ -1372,10 +1423,11 @@ def _graph_bytes(dev) -> int:
     return sum(t.numel() * t.element_size() for t in vars(dev).values() if hasattr(t, "element_size"))
 
 
-def sharded_path(device, card: str) -> dict:
+def sharded_path(device, path: str, card: str) -> dict:
     """Phase 10: ``N_SHARDED`` x 768 cosine (``bench_data``, seed 42, n/256
     centres) in ``N_SHARDS`` shards, every shard on ``device``, through
-    ``ShardedWriter`` / ``ShardedReader`` in a temporary directory:
+    ``ShardedWriter`` / ``ShardedReader`` in the empty directory ``path``
+    (phase 11 reopens it; the record's "deleted" lists the items deleted):
     (1) add → sequential build (``spmd=False``: each shard by the bulk
     path) → commit; (2) ``ShardedReader`` → ``assert_validity`` → search of
     the 256 queries at ef 100, recall@10 against ``flat_topk`` over every
@@ -1421,143 +1473,352 @@ def sharded_path(device, card: str) -> dict:
         return float(np.mean([[d <= kth[b] for _, d in row] for b, row in enumerate(answers)]))
 
     data, queries = bench_data(np.random.default_rng(42), n)
-    with tempfile.TemporaryDirectory() as path:
-        # ---- (1) add → sequential build (bulk per shard) → commit ----
-        kernel.reset_counts()
-        db = Database(path, Metric.COSINE, map_size=SHARDED_MAP_SIZE)
-        writer = ShardedWriter(db, DIM, n_shards=S, m=M, ef=EFC, devices=devices)
-        _, out["seconds"]["add_items"] = timed(f"add_items of {n} x {DIM} into {S} shards",
-                                               lambda: writer.add_items(range(n), data))
-        torch.cuda.reset_peak_memory_stats(device)
-        base = torch.cuda.memory_allocated(device)
-        with recorded() as spans:
-            _, out["seconds"]["build"] = timed("sequential build, spmd=False (fenced spans)", lambda: writer.build(spmd=False))
-        out["device_bytes"]["build_peak"] = torch.cuda.max_memory_allocated(device) - base
-        out["spans"]["build"] = _print_spans(label, spans)
-        per_shard = [s.ms / 1e3 for s in spans if s.name == "build_graph"]
-        if len(per_shard) != S or sum(s.name == "bulk_build" for s in spans) != S:
-            raise AssertionError(f"[{label}] not every shard took the bulk path: {sorted({s.name for s in spans})}")
-        out["seconds"]["build_graph_per_shard"] = per_shard
-        print(f"[{label}] build_graph per shard {', '.join(f'{t:.3f}' for t in per_shard)} s, "
-              f"{out['seconds']['build']:.3f} s in all; device memory peak above the start "
-              f"{out['device_bytes']['build_peak'] / 2**30:.3f} GiB ({card})", flush=True)
-        _, out["seconds"]["commit"] = timed("commit_rw_txn", db.commit_rw_txn)
-        out["launches"]["sequential_build"] = count_main_path(f"{label}: sequential build")
+    # ---- (1) add → sequential build (bulk per shard) → commit ----
+    kernel.reset_counts()
+    db = Database(path, Metric.COSINE, map_size=SHARDED_MAP_SIZE)
+    writer = ShardedWriter(db, DIM, n_shards=S, m=M, ef=EFC, devices=devices)
+    _, out["seconds"]["add_items"] = timed(f"add_items of {n} x {DIM} into {S} shards",
+                                           lambda: writer.add_items(range(n), data))
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    with recorded() as spans:
+        _, out["seconds"]["build"] = timed("sequential build, spmd=False (fenced spans)", lambda: writer.build(spmd=False))
+    out["device_bytes"]["build_peak"] = torch.cuda.max_memory_allocated(device) - base
+    out["spans"]["build"] = _print_spans(label, spans)
+    per_shard = [s.ms / 1e3 for s in spans if s.name == "build_graph"]
+    if len(per_shard) != S or sum(s.name == "bulk_build" for s in spans) != S:
+        raise AssertionError(f"[{label}] not every shard took the bulk path: {sorted({s.name for s in spans})}")
+    out["seconds"]["build_graph_per_shard"] = per_shard
+    print(f"[{label}] build_graph per shard {', '.join(f'{t:.3f}' for t in per_shard)} s, "
+          f"{out['seconds']['build']:.3f} s in all; device memory peak above the start "
+          f"{out['device_bytes']['build_peak'] / 2**30:.3f} GiB ({card})", flush=True)
+    _, out["seconds"]["commit"] = timed("commit_rw_txn", db.commit_rw_txn)
+    out["launches"]["sequential_build"] = count_main_path(f"{label}: sequential build")
 
-        # ---- (2) ShardedReader → validity → search, recall, QPS ----
-        kernel.reset_counts()
-        torch.cuda.reset_peak_memory_stats(device)
-        base = torch.cuda.memory_allocated(device)
-        reader, out["seconds"]["reader_open"] = timed("ShardedReader open", lambda: ShardedReader(db, S, devices=devices))
-        out["device_bytes"]["reader"] = torch.cuda.memory_allocated(device) - base
-        out["device_bytes"]["reader_peak"] = torch.cuda.max_memory_allocated(device) - base
-        out["device_bytes"]["per_shard_index"] = [_graph_bytes(g) for g in reader._index.graphs]
-        out["device_bytes"]["per_shard_reader"] = [_graph_bytes(r._dev) for r in reader._readers]
-        print(f"[{label}] device bytes: ShardedReader {out['device_bytes']['reader'] / 2**20:.1f} MiB in all "
-              f"(peak {out['device_bytes']['reader_peak'] / 2**20:.1f}); per shard, its graph in the sharded index "
-              f"{', '.join(f'{b / 2**20:.1f}' for b in out['device_bytes']['per_shard_index'])} MiB and in its own "
-              f"Reader {', '.join(f'{b / 2**20:.1f}' for b in out['device_bytes']['per_shard_reader'])} MiB ({card})",
-              flush=True)
-        if reader.n_items() != n:
-            raise AssertionError(f"[{label}] {reader.n_items()} items, expected {n}")
-        _, out["seconds"]["assert_validity"] = timed("ShardedReader.assert_validity", reader.assert_validity)
-        answers = reader.search(queries, n=K, ef_search=ef)
-        out["recall_at_10"] = recall(data, answers)
-        one = reader._readers[0]
-        for _ in range(2):
-            reader.search(queries, n=K, ef_search=ef)
-            one.by_vecs(queries, n=K, ef_search=ef)
-        t_sh = [one_call(device, lambda: reader.search(queries, n=K, ef_search=ef)) for _ in range(5)]
-        t_one = [one_call(device, lambda: one.by_vecs(queries, n=K, ef_search=ef)) for _ in range(5)]
-        out["qps"] = {"sharded_search": N_QUERIES / float(np.median(t_sh)), "one_shard_by_vecs": N_QUERIES / float(np.median(t_one))}
-        print(f"[{label}] search of {N_QUERIES} queries at ef={ef} over {S} shards: recall@10 {out['recall_at_10']:.4f} "
-              f"against flat_topk over all {n}; {out['qps']['sharded_search']:.1f} QPS (median of 5), one shard's "
-              f"Reader.by_vecs {out['qps']['one_shard_by_vecs']:.1f} QPS ({card})", flush=True)
-        if out["recall_at_10"] < RECALL_BAR:
-            raise AssertionError(f"[{label}] recall@10 {out['recall_at_10']} below {RECALL_BAR}")
-        out["launches"]["open_and_search"] = count_main_path(f"{label}: open and search")
+    # ---- (2) ShardedReader → validity → search, recall, QPS ----
+    kernel.reset_counts()
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    reader, out["seconds"]["reader_open"] = timed("ShardedReader open", lambda: ShardedReader(db, S, devices=devices))
+    out["device_bytes"]["reader"] = torch.cuda.memory_allocated(device) - base
+    out["device_bytes"]["reader_peak"] = torch.cuda.max_memory_allocated(device) - base
+    out["device_bytes"]["per_shard_index"] = [_graph_bytes(g) for g in reader._index.graphs]
+    out["device_bytes"]["per_shard_reader"] = [_graph_bytes(r._dev) for r in reader._readers]
+    print(f"[{label}] device bytes: ShardedReader {out['device_bytes']['reader'] / 2**20:.1f} MiB in all "
+          f"(peak {out['device_bytes']['reader_peak'] / 2**20:.1f}); per shard, its graph in the sharded index "
+          f"{', '.join(f'{b / 2**20:.1f}' for b in out['device_bytes']['per_shard_index'])} MiB and in its own "
+          f"Reader {', '.join(f'{b / 2**20:.1f}' for b in out['device_bytes']['per_shard_reader'])} MiB ({card})",
+          flush=True)
+    if reader.n_items() != n:
+        raise AssertionError(f"[{label}] {reader.n_items()} items, expected {n}")
+    _, out["seconds"]["assert_validity"] = timed("ShardedReader.assert_validity", reader.assert_validity)
+    answers = reader.search(queries, n=K, ef_search=ef)
+    out["recall_at_10"] = recall(data, answers)
+    one = reader._readers[0]
+    for _ in range(2):
+        reader.search(queries, n=K, ef_search=ef)
+        one.by_vecs(queries, n=K, ef_search=ef)
+    t_sh = [one_call(device, lambda: reader.search(queries, n=K, ef_search=ef)) for _ in range(5)]
+    t_one = [one_call(device, lambda: one.by_vecs(queries, n=K, ef_search=ef)) for _ in range(5)]
+    out["qps"] = {"sharded_search": N_QUERIES / float(np.median(t_sh)), "one_shard_by_vecs": N_QUERIES / float(np.median(t_one))}
+    print(f"[{label}] search of {N_QUERIES} queries at ef={ef} over {S} shards: recall@10 {out['recall_at_10']:.4f} "
+          f"against flat_topk over all {n}; {out['qps']['sharded_search']:.1f} QPS (median of 5), one shard's "
+          f"Reader.by_vecs {out['qps']['one_shard_by_vecs']:.1f} QPS ({card})", flush=True)
+    if out["recall_at_10"] < RECALL_BAR:
+        raise AssertionError(f"[{label}] recall@10 {out['recall_at_10']} below {RECALL_BAR}")
+    out["launches"]["open_and_search"] = count_main_path(f"{label}: open and search")
 
-        # ---- (3) append 2,000 and delete 400 (every entry point) → lockstep build ----
-        kernel.reset_counts()
-        eps = sorted({int(e) for r in reader._readers for e in r._metadata.entry_points})
-        rest = np.setdiff1d(np.arange(n), eps)
-        doomed = np.sort(np.concatenate([eps, np.random.default_rng(44).choice(rest, SHARDED_DELETE - len(eps), replace=False)]))
-        extra = bench_append(N_APPEND, seed=43, n_data=n)
-        new_ids = np.arange(n, n + N_APPEND)
-        del reader, one
-        writer = ShardedWriter(db, DIM, n_shards=S, m=M, ef=EFC, devices=devices)
+    # ---- (3) append 2,000 and delete 400 (every entry point) → lockstep build ----
+    kernel.reset_counts()
+    eps = sorted({int(e) for r in reader._readers for e in r._metadata.entry_points})
+    rest = np.setdiff1d(np.arange(n), eps)
+    doomed = np.sort(np.concatenate([eps, np.random.default_rng(44).choice(rest, SHARDED_DELETE - len(eps), replace=False)]))
+    extra = bench_append(N_APPEND, seed=43, n_data=n)
+    new_ids = np.arange(n, n + N_APPEND)
+    del reader, one
+    writer = ShardedWriter(db, DIM, n_shards=S, m=M, ef=EFC, devices=devices)
 
-        def churn():
-            writer.add_items(new_ids, extra)
-            for i in doomed.tolist():
-                if not writer.del_item(i):
-                    raise AssertionError(f"[{label}] item {i} was not there to delete")
+    def churn():
+        writer.add_items(new_ids, extra)
+        for i in doomed.tolist():
+            if not writer.del_item(i):
+                raise AssertionError(f"[{label}] item {i} was not there to delete")
 
-        _, out["seconds"]["add_and_del"] = timed(f"add_items of {N_APPEND} + del_item x {SHARDED_DELETE} "
-                                                 f"({len(eps)} entry points)", churn)
-        with recorded() as spans:
-            _, out["seconds"]["lockstep_build"] = timed("lockstep build (fenced spans)", writer.build)
-        out["spans"]["lockstep_build"] = sp = _print_spans(label, spans, skip=("insert_wave", "spmd_wave", "repair_level"))
-        waves = [s for s in spans if s.name == "spmd_wave"]
-        out["lockstep_waves"] = len(waves)
-        print(f"[{label}]   span spmd_wave: {len(waves)} lockstep waves of {S} shards, {sum(s.ms for s in waves):.2f} ms, "
-              f"kernel launches {sum(s.probed for s in waves)}", flush=True)
-        for need in ("spmd_waves", "repair_deletions", "load_graph"):
-            if need not in sp:
-                raise AssertionError(f"[{label}] the lockstep build did not go through {need}: {sorted(sp)}")
-        _, out["seconds"]["lockstep_commit"] = timed("commit_rw_txn", db.commit_rw_txn)
-        out["launches"]["lockstep_build"] = count_main_path(f"{label}: lockstep build")
+    _, out["seconds"]["add_and_del"] = timed(f"add_items of {N_APPEND} + del_item x {SHARDED_DELETE} "
+                                             f"({len(eps)} entry points)", churn)
+    with recorded() as spans:
+        _, out["seconds"]["lockstep_build"] = timed("lockstep build (fenced spans)", writer.build)
+    out["spans"]["lockstep_build"] = sp = _print_spans(label, spans, skip=("insert_wave", "spmd_wave", "repair_level"))
+    waves = [s for s in spans if s.name == "spmd_wave"]
+    out["lockstep_waves"] = len(waves)
+    print(f"[{label}]   span spmd_wave: {len(waves)} lockstep waves of {S} shards, {sum(s.ms for s in waves):.2f} ms, "
+          f"kernel launches {sum(s.probed for s in waves)}", flush=True)
+    for need in ("spmd_waves", "repair_deletions", "load_graph"):
+        if need not in sp:
+            raise AssertionError(f"[{label}] the lockstep build did not go through {need}: {sorted(sp)}")
+    _, out["seconds"]["lockstep_commit"] = timed("commit_rw_txn", db.commit_rw_txn)
+    out["launches"]["lockstep_build"] = count_main_path(f"{label}: lockstep build")
 
-        # ---- (4) a new ShardedReader: no deleted id, self-hit, recall ----
-        kernel.reset_counts()
-        reader, out["seconds"]["reader_reopen"] = timed("ShardedReader open after the lockstep build",
-                                                        lambda: ShardedReader(db, S, devices=devices))
-        if reader.n_items() != n + N_APPEND - SHARDED_DELETE:
-            raise AssertionError(f"[{label}] {reader.n_items()} items after the lockstep build")
-        reader.assert_validity()
-        after = reader.search(queries, n=K, ef_search=ef)
-        dset = set(doomed.tolist())
-        if any(i in dset for row in after for i, _ in row):
-            raise AssertionError(f"[{label}] a deleted item came back in an answer")
-        survivors = np.concatenate([np.delete(data, doomed, axis=0), extra])
-        out["recall_at_10_after"] = recall(survivors, after)
-        firsts = reader.search(extra, n=1, ef_search=ef)
-        out["self_hit"] = float(np.mean([bool(row) and row[0][0] == int(new_ids[i]) for i, row in enumerate(firsts)]))
-        print(f"[{label}] after +{N_APPEND} / -{SHARDED_DELETE}: recall@10 {out['recall_at_10_after']:.4f}, no deleted "
-              f"id in {N_QUERIES} answers, the appended items find themselves first in {out['self_hit']:.4f} of rows "
-              f"({card})", flush=True)
-        if out["recall_at_10_after"] < RECALL_BAR or out["self_hit"] < SELF_HIT_BAR:
-            raise AssertionError(f"[{label}] recall@10 {out['recall_at_10_after']} or self-hit {out['self_hit']}")
-        out["launches"]["reopen_and_search"] = count_main_path(f"{label}: reopen and search")
+    # ---- (4) a new ShardedReader: no deleted id, self-hit, recall ----
+    kernel.reset_counts()
+    reader, out["seconds"]["reader_reopen"] = timed("ShardedReader open after the lockstep build",
+                                                    lambda: ShardedReader(db, S, devices=devices))
+    if reader.n_items() != n + N_APPEND - SHARDED_DELETE:
+        raise AssertionError(f"[{label}] {reader.n_items()} items after the lockstep build")
+    reader.assert_validity()
+    after = reader.search(queries, n=K, ef_search=ef)
+    dset = set(doomed.tolist())
+    out["deleted"] = sorted(dset)
+    if any(i in dset for row in after for i, _ in row):
+        raise AssertionError(f"[{label}] a deleted item came back in an answer")
+    survivors = np.concatenate([np.delete(data, doomed, axis=0), extra])
+    out["recall_at_10_after"] = recall(survivors, after)
+    firsts = reader.search(extra, n=1, ef_search=ef)
+    out["self_hit"] = float(np.mean([bool(row) and row[0][0] == int(new_ids[i]) for i, row in enumerate(firsts)]))
+    print(f"[{label}] after +{N_APPEND} / -{SHARDED_DELETE}: recall@10 {out['recall_at_10_after']:.4f}, no deleted "
+          f"id in {N_QUERIES} answers, the appended items find themselves first in {out['self_hit']:.4f} of rows "
+          f"({card})", flush=True)
+    if out["recall_at_10_after"] < RECALL_BAR or out["self_hit"] < SELF_HIT_BAR:
+        raise AssertionError(f"[{label}] recall@10 {out['recall_at_10_after']} or self-hit {out['self_hit']}")
+    out["launches"]["reopen_and_search"] = count_main_path(f"{label}: reopen and search")
 
-        # ---- (5) a lockstep build cancelled at its 2nd check ----
-        kernel.reset_counts()
-        writer = ShardedWriter(db, DIM, n_shards=S, m=M, ef=EFC, devices=devices)
-        writer.add_items(np.arange(n + N_APPEND, n + N_APPEND + 400), bench_append(400, seed=50, n_data=n))
-        for i in np.random.default_rng(51).choice(np.setdiff1d(np.arange(n), doomed), 100, replace=False).tolist():
-            writer.del_item(int(i))
-        fire = FireAt(2)
-        t0 = time.perf_counter()
-        try:
-            writer.build(opts=BuildOptions(ef_construction=EFC, cancel=fire))
-        except BuildCancelled:
-            raised = time.perf_counter()
-        else:
-            raise AssertionError(f"[{label}] the lockstep build whose cancel fired did not raise BuildCancelled")
-        if fire.fired_at is None or not db.abort_rw_txn():
-            raise AssertionError(f"[{label}] the cancel never fired, or there was no transaction to abort")
-        if ShardedReader(db, S, devices=devices).search(queries, n=K, ef_search=ef) != after:
-            raise AssertionError(f"[{label}] after the cancelled lockstep build and the abort, the answers changed")
-        out["cancel"] = {"seconds_to_the_firing_check": fire.fired_at - t0, "seconds_firing_check_to_raise": raised - fire.fired_at}
-        print(f"[{label}] lockstep build cancelled at its 2nd check {out['cancel']['seconds_to_the_firing_check']:.3f} s "
-              f"after it began: BuildCancelled {out['cancel']['seconds_firing_check_to_raise'] * 1e3:.3f} ms later; "
-              f"aborted, and a new ShardedReader gives the answers of before ({card})", flush=True)
-        out["launches"]["cancelled_build"] = count_main_path(f"{label}: cancelled lockstep build")
-        db.close()
+    # ---- (5) a lockstep build cancelled at its 2nd check ----
+    kernel.reset_counts()
+    writer = ShardedWriter(db, DIM, n_shards=S, m=M, ef=EFC, devices=devices)
+    writer.add_items(np.arange(n + N_APPEND, n + N_APPEND + 400), bench_append(400, seed=50, n_data=n))
+    for i in np.random.default_rng(51).choice(np.setdiff1d(np.arange(n), doomed), 100, replace=False).tolist():
+        writer.del_item(int(i))
+    fire = FireAt(2)
+    t0 = time.perf_counter()
+    try:
+        writer.build(opts=BuildOptions(ef_construction=EFC, cancel=fire))
+    except BuildCancelled:
+        raised = time.perf_counter()
+    else:
+        raise AssertionError(f"[{label}] the lockstep build whose cancel fired did not raise BuildCancelled")
+    if fire.fired_at is None or not db.abort_rw_txn():
+        raise AssertionError(f"[{label}] the cancel never fired, or there was no transaction to abort")
+    if ShardedReader(db, S, devices=devices).search(queries, n=K, ef_search=ef) != after:
+        raise AssertionError(f"[{label}] after the cancelled lockstep build and the abort, the answers changed")
+    out["cancel"] = {"seconds_to_the_firing_check": fire.fired_at - t0, "seconds_firing_check_to_raise": raised - fire.fired_at}
+    print(f"[{label}] lockstep build cancelled at its 2nd check {out['cancel']['seconds_to_the_firing_check']:.3f} s "
+          f"after it began: BuildCancelled {out['cancel']['seconds_firing_check_to_raise'] * 1e3:.3f} ms later; "
+          f"aborted, and a new ShardedReader gives the answers of before ({card})", flush=True)
+    out["launches"]["cancelled_build"] = count_main_path(f"{label}: cancelled lockstep build")
+    db.close()
     total = sum(sum(step.values()) for step in out["launches"].values())
     print(f"[{label}] kernel launches {total}: {json.dumps(out['launches'])}", flush=True)
     if min(sum(step.values()) for name, step in out["launches"].items() if name != "cancelled_build") == 0:
         raise AssertionError(f"[{label}] a step launched no kernel: {out['launches']}")
+    return out
+
+
+def _exact_top(device, data, queries):
+    """(queries, norms, flat_topk's K-th distance + 1e-6) for ``data`` on
+    the device: the tie-aware recall threshold of every query."""
+    import torch
+
+    from hannoy_tpu_torch import flat_topk
+    from hannoy_tpu_torch.ops import distances
+
+    metric = distances.COSINE
+    q = torch.from_numpy(queries).to(device)
+    qn = torch.from_numpy(distances.np_norms(metric, queries)).to(device)
+    x = torch.from_numpy(data).to(device)
+    xn = torch.from_numpy(distances.np_norms(metric, data)).to(device)
+    exact_d, _ = flat_topk(metric.name, q, qn, x, xn, torch.ones(len(data), dtype=torch.bool, device=device), K)
+    return q, qn, exact_d[:, K - 1 : K] + 1e-6
+
+
+def option_build(device, data, top, label: str, name: str, card: str, **opts):
+    """One phase-11 build: timed unfenced (ended by one synchronize) with
+    its kernel launches, waves, chained waves and beam iterations,
+    ``check_validity``, then the 256 queries at ef 100 on its serve-only
+    upload: recall@10 against ``top`` (``_exact_top``). Build and search
+    are main-path steps. → (record, graph, device graph, search result)"""
+    from hannoy_tpu_torch import default_ef_upper, hnsw_search
+    from hannoy_tpu_torch.models.hnsw import to_device
+    from hannoy_tpu_torch.ops import beam_cuda
+
+    q, qn, thresh = top
+    ef = EF_SWEEP[-1]
+    beam_cuda.KERNEL.reset_counts()
+    g, stats, build_s, spans = timed_build(device, data, **opts)
+    rec = {"build_s": build_s, "waves": stats.waves, "beam_iters": stats.beam_iters,
+           "chained_waves": sum(1 for sp in spans if sp.name == "insert_wave" and sp.fields.get("chained")),
+           "build_launches": beam_cuda.KERNEL.launches, "build_launches_by_shape": _shapes(beam_cuda.KERNEL.by_shape),
+           "spans": sorted({sp.name for sp in spans})}
+    count_main_path(f"{label}: {name} build")
+    g.check_validity()
+    dev = to_device(g, device, serve_only=True)
+    beam_cuda.KERNEL.reset_counts()
+    res = hnsw_search(dev, q, qn, ef, ef_upper=default_ef_upper(len(data), ef))
+    count_main_path(f"{label}: {name} search")
+    if res.dists.shape != (N_QUERIES, ef) or not bool(res.dists[:, :K].isfinite().all()):
+        raise AssertionError(f"[{label}] {name}: search returned non-finite or mis-shaped results")
+    rec["recall_at_10"] = float((res.dists[:, :K] <= thresh).float().mean())
+    print(f"[{label}] {name}: {len(data)} x {DIM} built in {build_s:.3f} s, waves {stats.waves} (chained "
+          f"{rec['chained_waves']}), beam iters {stats.beam_iters}, kernel launches {rec['build_launches']} "
+          f"{rec['build_launches_by_shape']}; check_validity passed; recall@10 at ef={ef} {rec['recall_at_10']:.4f} "
+          f"({card})", flush=True)
+    return rec, g, dev, res
+
+
+def options_path(device, sharded_dir: str, sharded: dict, card: str) -> dict:
+    """Phase 11: the build options on phase 4/5's data (``bench_data``, seed
+    42). (a) The wave path on the first ``N_OPTION_WAVE`` items: the
+    default build, then ``beam_expand=2``, ``traverse=24``,
+    ``link_slack=16`` and ``chain_seeding`` (which must chain waves), then
+    the default again. (b) The bulk path on all N: the default build, then
+    ``bulk_renumber`` (the answers equal the default's by item id and
+    distance; QPS of the two graphs in turns), ``bulk_backbone=False,
+    bulk_upper=1``, ``backbone_flat=False`` and ``bulk_init="random"``,
+    then the default again. Every build valid,
+    recall@10 >= RECALL_BAR but where UNBARRED. (c) Phase 10's database
+    (``sharded_dir``, its deleted items in ``sharded``): +2,000 (seed 46)
+    / -400 (seed 47, every shard's entry points among them) through the
+    lockstep ``ShardedWriter.build(opts=)`` with ``link_slack=8`` → a new
+    ``ShardedReader``: validity, no deleted id, recall, self-hit."""
+    import torch
+
+    from hannoy_tpu_torch import BuildOptions, Database, Metric, default_ef_upper, hnsw_search
+    from hannoy_tpu_torch.ops import beam_cuda
+    from hannoy_tpu_torch.parallel import ShardedReader, ShardedWriter
+    from hannoy_tpu_torch.utils import tracing
+
+    label = "phase 11: build options"
+    ef = EF_SWEEP[-1]
+    data, queries = bench_data(np.random.default_rng(42))
+    out: dict = {"wave": {}, "bulk": {}}
+
+    def check(path: str, name: str, rec: dict, need: str) -> None:
+        if need not in rec["spans"]:
+            raise AssertionError(f"[{label}] {path} {name}: the build did not go through {need}: {rec['spans']}")
+        if name not in UNBARRED and rec["recall_at_10"] < RECALL_BAR:
+            raise AssertionError(f"[{label}] {path} {name}: recall@10 {rec['recall_at_10']} below {RECALL_BAR}")
+
+    # ---- (a) the wave path ----
+    wdata = data[:N_OPTION_WAVE]
+    top = _exact_top(device, wdata, queries)
+    for name, opts in WAVE_OPTIONS:
+        rec, g, dev, _ = option_build(device, wdata, top, label, f"waves {name}", card, bulk=False, **opts)
+        need = {"link_slack=16": "prune_slack_rows"}.get(name, "insert_wave")
+        check("waves", name, rec, need)
+        out["wave"][name] = rec
+        del g, dev
+    if out["wave"]["chain_seeding"]["chained_waves"] == 0:
+        raise AssertionError(f"[{label}] chain_seeding chained no wave")
+    base = out["wave"]["default"]
+    base_s = (base["build_s"] + out["wave"]["default again"]["build_s"]) / 2
+    for name, rec in out["wave"].items():
+        print(f"[{label}] waves {name}: {rec['build_s'] / base_s:.3f}x the defaults' mean build seconds, "
+              f"{rec['beam_iters'] / max(1, base['beam_iters']):.3f}x their beam iterations, "
+              f"{rec['build_launches'] / max(1, base['build_launches']):.3f}x their kernel launches", flush=True)
+    torch.cuda.empty_cache()
+
+    # ---- (b) the bulk path ----
+    top = _exact_top(device, data, queries)
+    graphs = {}
+    for name, opts in BULK_OPTIONS:
+        rec, g, dev, res = option_build(device, data, top, label, f"bulk {name}", card, **opts)
+        check("bulk", name, rec, {"bulk_renumber": "bulk_renumber", "bulk_init=random": "bulk_kmeans",
+                                  "bulk_backbone=False,bulk_upper=1": "bulk_upper_tri"}.get(name, "bulk_build"))
+        if name == "bulk_init=random" and "bulk_maxmin" in rec["spans"]:
+            raise AssertionError(f"[{label}] bulk_init=random ran the maxmin init")
+        out["bulk"][name] = rec
+        if name in ("default", "bulk_renumber"):
+            graphs[name] = (g, dev, res)
+        del g, dev
+    (pg, pdev, pres), (rg, rdev, rres) = graphs["default"], graphs["bulk_renumber"]
+    if np.array_equal(rg.ids, pg.ids):
+        raise AssertionError(f"[{label}] bulk_renumber left the slots as they were")
+    p_ids, r_ids = pg.ids[pres.slots.clamp(min=0).cpu().numpy()], rg.ids[rres.slots.clamp(min=0).cpu().numpy()]
+    same_ids = bool(np.array_equal(p_ids, r_ids))
+    same_d = bool(torch.equal(pres.dists, rres.dists))
+    q, qn, _ = top
+    efu = default_ef_upper(N, ef)
+    times: dict[str, list] = {"default": [], "bulk_renumber": []}
+    for name in ("default", "bulk_renumber", "bulk_renumber", "default") * ((QPS_TURNS + 1) // 2):
+        if len(times[name]) < QPS_TURNS:
+            d = pdev if name == "default" else rdev
+            times[name].append(one_call(device, lambda d=d: hnsw_search(d, q, qn, ef, ef_upper=efu)))
+    qps = {k: N_QUERIES / float(np.median(v)) for k, v in times.items()}
+    out["renumber"] = {"same_ids": same_ids, "same_dists": same_d, "qps": qps,
+                       "qps_ratio": qps["bulk_renumber"] / qps["default"], "seconds": times}
+    print(f"[{label}] bulk_renumber: answers {'equal' if same_ids and same_d else 'NOT equal'} to the default "
+          f"build's by item id and distance; hnsw_search at ef={ef} {qps['default']:.1f} QPS plain, "
+          f"{qps['bulk_renumber']:.1f} QPS renumbered (median of {QPS_TURNS} each, in turns; ratio "
+          f"{out['renumber']['qps_ratio']:.3f}) ({card})", flush=True)
+    if not (same_ids and same_d):
+        raise AssertionError(f"[{label}] the renumbered build's answers differ from the plain build's by item id")
+    base_s = (out["bulk"]["default"]["build_s"] + out["bulk"]["default again"]["build_s"]) / 2
+    for name, rec in out["bulk"].items():
+        print(f"[{label}] bulk {name}: {rec['build_s'] / base_s:.3f}x the defaults' mean build seconds, "
+              f"recall@10 {rec['recall_at_10']:.4f}{' (printed, not barred)' if name in UNBARRED else ''}", flush=True)
+    del graphs, pg, pdev, rg, rdev, pres, rres
+    torch.cuda.empty_cache()
+
+    # ---- (c) the sharded churn with slack, on phase 10's database ----
+    S, n = N_SHARDS, N_SHARDED
+    devices = [device] * S
+    kernel = beam_cuda.KERNEL
+    kernel.reset_counts()
+    sdata, squeries = bench_data(np.random.default_rng(42), n)
+    # the items phase 10 left: its data but the deleted, and its appended
+    live = np.setdiff1d(np.arange(n), sharded["deleted"])
+    ids = np.concatenate([live, np.arange(n, n + N_APPEND)])
+    vecs = np.concatenate([sdata[live], bench_append(N_APPEND, seed=43, n_data=n)])
+    del sdata
+    db = Database(sharded_dir, Metric.COSINE, map_size=SHARDED_MAP_SIZE)
+    reader = ShardedReader(db, S, devices=devices)
+    eps = sorted({int(e) for r in reader._readers for e in r._metadata.entry_points})
+    del reader
+    rest = np.setdiff1d(ids, eps)
+    doomed = np.sort(np.concatenate([eps, np.random.default_rng(47).choice(rest, SHARDED_DELETE - len(eps), replace=False)]))
+    extra = bench_append(N_APPEND, seed=46, n_data=n)
+    new_ids = np.arange(n + N_APPEND, n + 2 * N_APPEND)
+    writer = ShardedWriter(db, DIM, n_shards=S, m=M, ef=EFC, devices=devices)
+    writer.add_items(new_ids, extra)
+    for i in doomed.tolist():
+        if not writer.del_item(int(i)):
+            raise AssertionError(f"[{label}] item {i} was not there to delete")
+    opts = BuildOptions(ef_construction=EFC, link_slack=SHARDED_SLACK)
+    with tracing.record(fence=lambda: _sync(device), probe=lambda: kernel.launches) as spans:
+        _, build_s = _timed(label, card, device, f"sharded lockstep build with link_slack={SHARDED_SLACK} "
+                            f"(+{N_APPEND} / -{SHARDED_DELETE}, {len(eps)} entry points; fenced spans)",
+                            lambda: writer.build(opts=opts))
+    sp = _print_spans(label, spans, skip=("insert_wave", "spmd_wave", "repair_level"))
+    for need in ("spmd_waves", "prune_slack_rows", "repair_deletions", "inbound_recheck"):
+        if need not in sp:
+            raise AssertionError(f"[{label}] the lockstep build did not go through {need}: {sorted(sp)}")
+    db.commit_rw_txn()
+    out["sharded"] = {"build_s": build_s, "spans": sp}
+    out["sharded"]["launches"] = count_main_path(f"{label}: sharded lockstep build with slack")
+    kernel.reset_counts()
+    reader = ShardedReader(db, S, devices=devices)
+    if reader.n_items() != len(ids) - SHARDED_DELETE + N_APPEND:
+        raise AssertionError(f"[{label}] {reader.n_items()} items after the churn")
+    reader.assert_validity()
+    answers = reader.search(squeries, n=K, ef_search=ef)
+    gone = set(doomed.tolist()) | set(sharded["deleted"])
+    if any(i in gone for row in answers for i, _ in row):
+        raise AssertionError(f"[{label}] a deleted item came back in an answer")
+    survivors = np.concatenate([vecs[~np.isin(ids, doomed)], extra])
+    _, _, thresh = _exact_top(device, survivors, squeries)
+    thresh = thresh[:, 0].cpu().numpy()
+    if any(len(row) != K for row in answers):
+        raise AssertionError(f"[{label}] a query came back with fewer than {K} results")
+    out["sharded"]["recall_at_10"] = float(np.mean([[d <= thresh[b] for _, d in row] for b, row in enumerate(answers)]))
+    firsts = reader.search(extra, n=1, ef_search=ef)
+    out["sharded"]["self_hit"] = float(np.mean([bool(row) and row[0][0] == int(new_ids[i]) for i, row in enumerate(firsts)]))
+    out["sharded"]["search_launches"] = count_main_path(f"{label}: sharded search after the churn")
+    print(f"[{label}] sharded, link_slack={SHARDED_SLACK}: {reader.n_items()} items valid, no deleted id in "
+          f"{N_QUERIES} answers, recall@10 {out['sharded']['recall_at_10']:.4f}, self-hit of the {N_APPEND} "
+          f"appended items {out['sharded']['self_hit']:.4f} ({card})", flush=True)
+    db.close()
+    if out["sharded"]["recall_at_10"] < RECALL_BAR or out["sharded"]["self_hit"] < SELF_HIT_BAR:
+        raise AssertionError(f"[{label}] sharded recall@10 {out['sharded']['recall_at_10']} or self-hit "
+                             f"{out['sharded']['self_hit']}")
     return out
 
 
@@ -1618,7 +1879,7 @@ def main() -> int:
         print(f"{name} took {phase_s[name]:.1f} s", flush=True)
 
     if "--kernel-only" in sys.argv[1:]:  # a short first run of new kernel code: build, check, time, stop
-        print(f"chip_smoke --kernel-only: {len(cases)} cases agree with their twins; phases 4-10 not run", flush=True)
+        print(f"chip_smoke --kernel-only: {len(cases)} cases agree with their twins; phases 4-11 not run", flush=True)
         return 0
     torch.cuda.empty_cache()
     data, queries = bench_data(np.random.default_rng(42))
@@ -1646,8 +1907,12 @@ def main() -> int:
         lap("phase 9")
     del data
     torch.cuda.empty_cache()
-    sharded = sharded_path(device, card)  # phase 10
-    lap("phase 10")
+    with tempfile.TemporaryDirectory() as sharded_dir:
+        sharded = sharded_path(device, sharded_dir, card)  # phase 10
+        lap("phase 10")
+        torch.cuda.empty_cache()
+        options = options_path(device, sharded_dir, sharded, card)  # phase 11
+        lap("phase 11")
 
     # the f32 cases beside their launches on the earlier paths
     for c in cases:
@@ -1672,7 +1937,7 @@ def main() -> int:
     for form in sorted({c["form"] for c in cases}):
         main = MAIN_PATH.get(form, {"launches": 0, "by_shape": {}})
         if main["launches"] == 0:
-            raise AssertionError(f"the main path (phases 5-10) never launched the kernel's {form} form: {MAIN_PATH}")
+            raise AssertionError(f"the main path (phases 5-11) never launched the kernel's {form} form: {MAIN_PATH}")
         own = [c for c in cases if c["form"] == form]
         for c in own:
             c["launches_main_path"] = main["by_shape"].get(f"{c['shape'][0]}x{c['shape'][1]}", 0)
@@ -1699,7 +1964,7 @@ def main() -> int:
     # three (which stay short): every timed case and every path's record
     print("detail " + json.dumps({"cases": cases, "phase_seconds": phase_s, "paths": {
         "wave_build": waves, "default_build": default, "api_path": api, "packed_path": packed, "tier_path": tiers,
-        "delete_filter_path": deletes, "sharded_path": sharded}}))
+        "delete_filter_path": deletes, "sharded_path": sharded, "options_path": options}}))
     kernels = {"kernels": entries}
     print(card_line())
     print(json.dumps(kernels))

@@ -6,26 +6,25 @@ every metric but f32 manhattan (``eligible``). Instead of inserting items, it bu
 0 from dense, matrix-product-shaped work:
 
 1. **candidates**: exact kNN over all members up to ``BRUTE_MAX``
-   members; above that, a k-means partition (maxmin init, Lloyd steps as
-   one-hot products), then per pseudo-cluster one ``[S, A·S]`` distance
-   block against its A nearest clusters (``distances.block_distances``)
-   and each row's top-K, plus the closest boundary pair per adjacent
-   cluster; and ``RAND_CANDIDATES`` random long-edge candidates per item,
-   whose distances run through the gather-distance kernel;
+   members; above that, a k-means partition (maxmin or random init, Lloyd
+   steps as one-hot products), then per pseudo-cluster one ``[S, A·S]``
+   distance block against its A nearest clusters
+   (``distances.block_distances``) and each row's top-K, plus the closest
+   boundary pair per adjacent cluster; and ``bulk_rand`` random long-edge
+   candidates per item, whose distances run through the gather-distance
+   kernel;
 2. **connect**: α-prune every candidate list into its forward row
    (pass 1), one global reverse merge
-   (``wave_ops.reverse_merge_edges_streamed``, pass 2), the stranded-row
-   guarantee (``wave_ops._ensure_inbound``, pass 3);
+   (``wave_ops.reverse_merge_edges_streamed``, pass 2), at layer 0 the
+   stranded-row guarantee (``wave_ops._ensure_inbound``, pass 3);
 3. **cross links**: the boundary pairs forced as edges both ways.
 
-The routing layers (every item of level >= 1) are built before this by
-the insertion waves in ``builder.build_graph`` (the navigability
-backbone), and only the level-0 items are connected here.
-
-Only layer 0 is built here, with the JAX package's default knobs as the
-constants below: its bulk-built upper layers (``bulk_upper``), slot
-renumbering and random k-means init are not ported. A build's cancel
-probe (``builder.cancel_probe``) is called between k-means iterations,
+``bulk_build`` builds layers ``top_level..0`` this way (``bulk_upper``;
+0 by default). By default the routing layers (every item of level >= 1)
+are built before it by the insertion waves in ``builder.build_graph``
+(the navigability backbone), and only the level-0 items are connected
+here. The settings are ``BuildOptions``' ``bulk_*`` fields. A build's
+cancel probe (``builder.cancel_probe``) is called between k-means iterations,
 candidate and random-candidate chunks, and the chunks of connect passes 1
 and 3; the JAX package also swaps in a chunked pass-2 connect when a
 cancel is set, which the port does not (one algorithm). The top-K is
@@ -40,10 +39,11 @@ is by squared euclidean distance, which every packed metric is monotone
 in; their candidate blocks take popcounts from products of unpacked bits
 (``distances.block_distances``, ``packed_matrix_mxu``). Rows of a storage
 tier cluster as the f32 values of what is stored (bf16 values, int8
-codes), as in the JAX package; the cluster centroids for the adjacency
-stay f32 and are compared by the metric's f32 formula (the JAX package
-casts them to the rows' type, which leaves every euclidean int8 centroid
-with scale 0).
+codes), as in the JAX package; the centroids stay f32 throughout and are
+compared by the metric's f32 formula for the adjacency (the JAX package
+casts them to the rows' type there, which leaves every euclidean int8
+centroid with scale 0, and its random init keeps them in that type
+through Lloyd).
 """
 
 from __future__ import annotations
@@ -71,19 +71,6 @@ CAND_GROUP = 4
 RAND_CHUNK = 8192
 #: forced boundary edges per source row at most
 FORCE_CAP = 4
-#: k-means target cluster size, Lloyd iterations, and the adjacent
-#: pseudo-clusters each one's candidate block spans
-CLUSTER_SIZE = 512
-KMEANS_ITERS = 3
-ADJ = 8
-#: members sampled for the maxmin (furthest-point) centroid init
-INIT_SAMPLE = 131072
-#: random long-edge candidates per item
-RAND_CANDIDATES = 8
-#: α of the bulk prune when the caller keeps the reference's α = 1.0:
-#: kNN-only candidate lists lack the long edges of an insertion-order
-#: build, and a mildly diverse prune restores navigability
-BULK_ALPHA = 1.1
 
 #: metrics the dense block path supports (f32 manhattan would
 #: materialise [G, S, T, D] and stays on the wave path)
@@ -222,26 +209,33 @@ def kmeans_partition(
     iters: int,
     rng: np.random.Generator,
     probe: Callable[[], bool] = _no_probe,
+    init: str = "maxmin",
+    init_sample: int = 131072,
 ) -> np.ndarray:
     """Cluster the member vectors on the device → assignment [n] (host).
 
-    The centroids start as a furthest-point selection over ``INIT_SAMPLE``
-    random members (cosine: over unit rows), which covers every
-    well-separated component of the data before Lloyd refines (the JAX
-    package's ``init="maxmin"``). Draws from ``rng`` as the JAX package does.
+    ``init="maxmin"``: the centroids start as a furthest-point selection
+    over ``init_sample`` random members (cosine: over unit rows), which
+    covers every well-separated component of the data before Lloyd
+    refines. ``init="random"``: ``n_clusters`` random members. Draws from
+    ``rng`` as the JAX package does.
     """
     n = len(member_slots)
     metric = dev.metric
     slots_pad = torch.tensor(_pad_to(member_slots.astype(np.int32), KMEANS_CHUNK, NO_ID), device=dev.device)
-    S = min(n, max(INIT_SAMPLE, 8 * n_clusters))
-    sample = member_slots[rng.choice(n, size=S, replace=False)]
-    sv = _member_rows(dev, torch.tensor(sample, dtype=torch.int64, device=dev.device))
-    geom = sv
-    if metric.name == "cosine":
-        geom = sv / (sv * sv).sum(-1).sqrt().clamp(min=1e-30)[:, None]
-    with span("bulk_maxmin", sample=S, clusters=n_clusters):
-        centroids = sv[_maxmin_indices(geom, n_clusters)]
-    del geom, sv
+    if init == "maxmin":
+        S = min(n, max(init_sample, 8 * n_clusters))
+        sample = member_slots[rng.choice(n, size=S, replace=False)]
+        sv = _member_rows(dev, torch.tensor(sample, dtype=torch.int64, device=dev.device))
+        geom = sv
+        if metric.name == "cosine":
+            geom = sv / (sv * sv).sum(-1).sqrt().clamp(min=1e-30)[:, None]
+        with span("bulk_maxmin", sample=S, clusters=n_clusters):
+            centroids = sv[_maxmin_indices(geom, n_clusters)]
+        del geom, sv
+    else:
+        init_rows = member_slots[rng.choice(n, size=n_clusters, replace=False)]
+        centroids = _member_rows(dev, torch.tensor(init_rows, dtype=torch.int64, device=dev.device))
     assign = None
     for _ in range(max(1, iters)):
         probe()
@@ -401,25 +395,29 @@ def _random_candidates(dev: DeviceGraph, members: np.ndarray, rand_slots: np.nda
     return out
 
 
-def layer_candidates(dev: DeviceGraph, member_slots: np.ndarray, K: int, rng: np.random.Generator, probe=_no_probe):
+def layer_candidates(dev: DeviceGraph, member_slots: np.ndarray, K: int, opts, rng: np.random.Generator,
+                     probe=_no_probe):
     """Candidate lists of the members → (ids [n_pad, K], dists [n_pad, K],
-    cross_edges or None), aligned with member positions. ``cross_edges``
-    = (src, dst, d) of the closest boundary pair per (cluster, adjacent
-    cluster), from the k-means path only."""
+    locality order or None, cross_edges or None), aligned with member
+    positions. From the k-means path only: the order (member positions
+    sorted by cluster, stable), and ``cross_edges`` = (src, dst, d) of the
+    closest boundary pair per (cluster, adjacent cluster)."""
     n = len(member_slots)
     K = min(K, n - 1)
     if n <= BRUTE_MAX:
         with span("bulk_candidates", n=n, brute=1):
             ids, d = _brute_candidates(dev, member_slots, K, chunk=min(4096, max(256, n)), probe=probe)
-        return ids, d, None
+        return ids, d, None, None
 
-    C = max(8, n // CLUSTER_SIZE)
+    C = max(8, n // opts.bulk_cluster_size)
     with span("bulk_kmeans", n=n, clusters=C):
-        assign = kmeans_partition(dev, member_slots, C, KMEANS_ITERS, rng, probe)
+        assign = kmeans_partition(dev, member_slots, C, opts.bulk_kmeans_iters, rng, probe,
+                                  init=opts.bulk_init, init_sample=opts.bulk_init_sample)
     s_cap = int(np.ceil(1.3 * n / C))
     tab_pos, parent = _pseudo_cluster_tables(assign, C, s_cap)
+    order = np.argsort(assign, kind="stable")
     Cp = tab_pos.shape[0]
-    A = min(ADJ, Cp)
+    A = min(opts.bulk_adj, Cp)
     pad_rows = (-Cp) % CAND_GROUP
     if pad_rows:
         tab_pos = np.concatenate([tab_pos, np.full((pad_rows, s_cap), -1, dtype=np.int64)])
@@ -432,7 +430,7 @@ def layer_candidates(dev: DeviceGraph, member_slots: np.ndarray, K: int, rng: np
         adj[Cp:] = -1  # padding rows select nothing
     with span("bulk_candidates", n=n, pseudo_clusters=Cp, s_cap=s_cap, adj=A):
         ids, d, x_src, x_dst, x_d = _cluster_candidates(dev, tab_slots, tab_pos, adj, n, K, probe)
-    return ids, d, (x_src, x_dst, x_d)
+    return ids, d, order, (x_src, x_dst, x_d)
 
 
 # --------------------------------------------------------------------------
@@ -445,6 +443,7 @@ def _bulk_connect(
     slots_pad: np.ndarray,  # [n_pad] (-1 padded to ``chunk``)
     cand_ids: torch.Tensor,  # [n_pad, K] position-aligned
     cand_d: torch.Tensor,
+    level: int,
     dirty: torch.Tensor,
     counters: torch.Tensor,
     cap: int,
@@ -452,14 +451,14 @@ def _bulk_connect(
     chunk: int,
     probe: Callable[[], bool] = _no_probe,
 ):
-    """The three connect passes at layer 0. Pass 2 and 3 read the pass-1
-    selections from explicit tables: a row that absorbed reverse edges
-    does not re-emit them as its own selections."""
+    """The connect passes at ``level`` (pass 3 at layer 0 only). Pass 2
+    and 3 read the pass-1 selections from explicit tables: a row that
+    absorbed reverse edges does not re-emit them as its own selections."""
     member = torch.tensor(slots_pad, device=dev.device)
     n_pad = member.shape[0]
     fwd_ids = torch.full((n_pad, cap), NO_ID, dtype=torch.int32, device=dev.device)
     fwd_d = torch.full((n_pad, cap), INF, device=dev.device)
-    with span("connect_pass1", n=n_pad, K=cand_ids.shape[1]):
+    with span("connect_pass1", level=level, n=n_pad, K=cand_ids.shape[1]):
         for p0 in range(0, n_pad, chunk):
             probe()
             sl = member[p0 : p0 + chunk]
@@ -469,16 +468,18 @@ def _bulk_connect(
                 torch.where(ok, cand_ids[p0 : p0 + chunk], NO_ID), torch.where(ok, cand_d[p0 : p0 + chunk], INF),
                 cap, alpha,
             )
-            wave_ops._set_level_rows(dev, 0, sl, sel_ids, sel_d)
+            wave_ops._set_level_rows(dev, level, sl, sel_ids, sel_d)
             fwd_ids[p0 : p0 + chunk] = sel_ids
             fwd_d[p0 : p0 + chunk] = sel_d
             counters[wave_ops.CNT_FWD_LINKS] += (sel_ids != NO_ID).sum()
-    with span("connect_pass2", n=n_pad):
+    with span("connect_pass2", level=level, n=n_pad):
         dev, counters, u_dst = wave_ops.reverse_merge_edges_streamed(
-            dev, 0, member, fwd_ids, fwd_d, counters, cap, alpha, inc_cap=cap
+            dev, level, member, fwd_ids, fwd_d, counters, cap, alpha, inc_cap=cap
         )
         dirty[u_dst.long()] = True
         dirty[member[member >= 0].long()] = True
+    if level:
+        return dev, dirty, counters
     with span("connect_pass3", n=n_pad):
         for p0 in range(0, n_pad, chunk):
             probe()
@@ -493,17 +494,18 @@ def _force_cross_links(
     src: torch.Tensor,  # [E] boundary sources (-1 padded)
     dst: torch.Tensor,  # [E]
     d: torch.Tensor,  # [E]
+    level: int,
     dirty: torch.Tensor,
     counters: torch.Tensor,
 ):
-    """Force the closest cross-cluster boundary pairs as layer-0 edges
-    (both directions), displacing each row's worst links: at most
-    ``FORCE_CAP`` per source row, ranked by (source, distance). A pure-kNN
-    layer of clustered data falls apart into components; these edges keep
-    it connected. Touched rows are re-sorted."""
+    """Force the closest cross-cluster boundary pairs as edges at
+    ``level`` (both directions), displacing each row's worst links: at
+    most ``FORCE_CAP`` per source row, ranked by (source, distance). A
+    pure-kNN layer of clustered data falls apart into components; these
+    edges keep it connected. Touched rows are re-sorted."""
     s2, t2, dd = torch.cat([src, dst]), torch.cat([dst, src]), torch.cat([d, d])
     ok = (s2 != NO_ID) & (t2 != NO_ID) & torch.isfinite(dd)
-    present = (beam.links_at(g, 0, torch.where(ok, s2, NO_ID)) == t2[:, None]).any(-1)
+    present = (beam.links_at(g, level, torch.where(ok, s2, NO_ID)) == t2[:, None]).any(-1)
     key = torch.where(ok & ~present, s2, wave_ops._KEY_LAST)
 
     # drop repeated (src, dst) pairs, then rank each source's edges by distance
@@ -518,14 +520,19 @@ def _force_cross_links(
     _, _, rank = wave_ops._segments(ks)
     keep = (ks != wave_ops._KEY_LAST) & (kt != NO_ID) & (rank < FORCE_CAP)
 
-    rows, col = ks[keep].long(), g.links0.shape[-1] - 1 - rank[keep]
-    g.links0[rows, col] = kt[keep]
-    g.dists0[rows, col] = kd[keep]
+    rows = ks[keep].long()
+    if level == 0:
+        links, dists, trow = g.links0, g.dists0, rows
+    else:  # upper tables are indexed by row, not slot
+        links, dists = g.upper_links[level - 1], g.upper_dists[level - 1]
+        trow = g.slot_rows[level - 1][rows].long()
+    col = links.shape[-1] - 1 - rank[keep]
+    links[trow, col] = kt[keep]
+    dists[trow, col] = kd[keep]
     # re-sort the touched rows; a row listed twice gets the same values twice
-    touched = torch.where(keep, ks, NO_ID)
-    t_d, t_ids = topk.sort_by_dist(g.dists0[_ix(touched)], g.links0[_ix(touched)])
-    wave_ops._scatter_rows(g.links0, touched, t_ids)
-    wave_ops._scatter_rows(g.dists0, touched, t_d)
+    t_d, t_ids = topk.sort_by_dist(dists[trow], links[trow])
+    links[trow] = t_ids
+    dists[trow] = t_d
     dirty[rows] = True
     counters[wave_ops.CNT_FWD_LINKS] += keep.sum()
     return g, dirty, counters
@@ -539,50 +546,76 @@ def bulk_build(
     opts,
     dirty: torch.Tensor,
     counters: torch.Tensor,
+    top_level: int = 0,
     connect_mask: Optional[np.ndarray] = None,
     probe: Callable[[], bool] = _no_probe,
-) -> tuple[DeviceGraph, torch.Tensor, torch.Tensor]:
-    """Build layer 0 of a fresh index from candidate lists.
+) -> tuple[DeviceGraph, torch.Tensor, torch.Tensor, Optional[np.ndarray]]:
+    """Build layers ``top_level..0`` of a fresh index from candidate lists
+    (cap M0 at layer 0, M above it) → (dev, dirty, counters, order0).
 
-    Every item takes part in the clustering and as a candidate column.
-    ``connect_mask`` (bool, aligned with ``slots``): when set, only its
-    True rows get forward rows, reverse merges and the inbound repair —
-    the backbone mode, where the level >= 1 items were already inserted at
-    layer 0 by insertion waves, with the long edges that overwriting their
-    rows would destroy. Reverse merges still extend backbone rows.
+    At each level every member (item of that level or above) takes part
+    in the clustering and as a candidate column. ``connect_mask`` (bool,
+    aligned with ``slots``): when set, only its True rows get forward
+    rows, reverse merges and the inbound repair — the backbone mode, where
+    the level >= 1 items were already inserted at layer 0 by insertion
+    waves, with the long edges that overwriting their rows would destroy.
+    Reverse merges still extend backbone rows. ``order0``: layer 0's
+    locality order (member positions sorted by k-means cluster) for the
+    slot renumbering, None when layer 0 took brute-force candidates.
     ``probe``: the build's cancel check (``builder.cancel_probe``).
+
+    The settings: ``opts.bulk_k`` candidates per item (None → max(efc,
+    m0 + 16)); the prune's α is ``opts.bulk_alpha``, else 1.1 where the
+    caller keeps the reference's α = 1.0 (kNN-only candidate lists lack
+    the long edges of an insertion-order build, and a mildly diverse prune
+    restores navigability), else ``opts.alpha``; ``opts.bulk_rand``
+    random long-edge candidates per item where a level has more than four
+    times K members; the k-means settings in ``layer_candidates``.
     """
     rng = np.random.default_rng(opts.seed + 0x6B)
-    K = max(opts.ef_construction, g_host.m0 + 16)
-    alpha = BULK_ALPHA if opts.alpha == 1.0 else opts.alpha
-    members = slots.astype(np.int64)
-    n = len(members)
-    if not n:
-        return dev, dirty, counters
-    cand_ids, cand_d, cross = layer_candidates(dev, members, K, rng, probe)
-    if n > 4 * K:
-        # NSW-style long-edge candidates; the α-prune keeps the uncovered ones
-        rand_slots = members[rng.integers(0, n, size=(n, RAND_CANDIDATES))].astype(np.int32)
-        with span("bulk_random_candidates", n=n, r=RAND_CANDIDATES):
-            rd = _random_candidates(dev, members, rand_slots, probe)
-        cand_ids = torch.cat([cand_ids[:n], torch.tensor(rand_slots, device=dev.device)], dim=1)
-        cand_d, cand_ids = topk.sort_by_dist(torch.cat([cand_d[:n], rd], dim=1), cand_ids)
-    members_c = members
-    if connect_mask is not None:
-        pos = np.nonzero(connect_mask)[0]
-        if not len(pos):
-            return dev, dirty, counters
-        members_c = members[pos]
-        sel = torch.tensor(pos, dtype=torch.int64, device=dev.device)
-        cand_ids, cand_d = cand_ids[sel], cand_d[sel]
-    chunk = min(CONNECT_CHUNK, max(256, len(members_c)))
-    slots_pad = _pad_to(members_c.astype(np.int32), chunk, NO_ID)
-    cand_ids = _fit_rows(cand_ids, len(slots_pad), NO_ID)
-    cand_d = _fit_rows(cand_d, len(slots_pad), INF)
-    dev, dirty, counters = _bulk_connect(
-        dev, slots_pad, cand_ids, cand_d, dirty, counters, cap=g_host.m0, alpha=alpha, chunk=chunk, probe=probe
-    )
-    if cross is not None:
-        with span("bulk_cross_links", pairs=int(cross[0].shape[0])):
-            dev, dirty, counters = _force_cross_links(dev, *cross, dirty, counters)
-    return dev, dirty, counters
+    K = opts.bulk_k or max(opts.ef_construction, g_host.m0 + 16)
+    if opts.bulk_alpha is not None:
+        alpha = opts.bulk_alpha
+    elif opts.alpha == 1.0:
+        alpha = 1.1
+    else:
+        alpha = opts.alpha
+    order0 = None
+    for level in range(top_level, -1, -1):
+        members = slots[lvls >= level].astype(np.int64)
+        n = len(members)
+        if not n:
+            continue
+        probe()
+        with span("bulk_layer", level=level, members=n):
+            cand_ids, cand_d, order, cross = layer_candidates(dev, members, K, opts, rng, probe)
+            if level == 0:
+                order0 = order
+            if opts.bulk_rand and n > 4 * K:
+                # NSW-style long-edge candidates; the α-prune keeps the uncovered ones
+                rand_slots = members[rng.integers(0, n, size=(n, opts.bulk_rand))].astype(np.int32)
+                with span("bulk_random_candidates", n=n, r=opts.bulk_rand):
+                    rd = _random_candidates(dev, members, rand_slots, probe)
+                cand_ids = torch.cat([cand_ids[:n], torch.tensor(rand_slots, device=dev.device)], dim=1)
+                cand_d, cand_ids = topk.sort_by_dist(torch.cat([cand_d[:n], rd], dim=1), cand_ids)
+            members_c = members
+            if connect_mask is not None:
+                pos = np.nonzero(connect_mask[lvls >= level])[0]
+                if not len(pos):
+                    continue
+                members_c = members[pos]
+                sel = torch.tensor(pos, dtype=torch.int64, device=dev.device)
+                cand_ids, cand_d = cand_ids[sel], cand_d[sel]
+            chunk = min(CONNECT_CHUNK, max(256, len(members_c)))
+            slots_pad = _pad_to(members_c.astype(np.int32), chunk, NO_ID)
+            cand_ids = _fit_rows(cand_ids, len(slots_pad), NO_ID)
+            cand_d = _fit_rows(cand_d, len(slots_pad), INF)
+            cap = g_host.m0 if level == 0 else g_host.m
+            dev, dirty, counters = _bulk_connect(
+                dev, slots_pad, cand_ids, cand_d, level, dirty, counters, cap=cap, alpha=alpha, chunk=chunk,
+                probe=probe,
+            )
+            if cross is not None:
+                with span("bulk_cross_links", level=level, pairs=int(cross[0].shape[0])):
+                    dev, dirty, counters = _force_cross_links(dev, *cross, level, dirty, counters)
+    return dev, dirty, counters, order0

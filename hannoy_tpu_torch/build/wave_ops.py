@@ -16,8 +16,14 @@ repeat except where noted.
 ``reverse_merge_edges_streamed`` is the bulk connector's global variant
 of the reverse merge. ``fill_link_dists`` recomputes the link distances
 of a graph loaded from the store. ``repair_deleted_rows`` and
-``clear_slots`` are the deletion pass. Not ported (options that default
-to off, ROADMAP.md): slack rows, prototype seeding.
+``clear_slots`` are the deletion pass.
+
+Link slack (``BuildOptions.link_slack``): a build may hold layer 0 in a
+table wider than its logical width ``cap`` (M0 + slack columns). Forward
+rows are pruned to ``cap`` and written padded; the reverse merge prunes a
+row only when it overflows the physical width, and ``prune_slack_rows``
+brings every row back to ``cap`` at the end of the build. Readers never
+see the slack columns (``models.hnsw.from_device`` keeps M0).
 """
 
 from __future__ import annotations
@@ -67,7 +73,9 @@ def _scatter_rows(table: torch.Tensor, rows: torch.Tensor, vals: torch.Tensor) -
 
 def _set_level_rows(g: DeviceGraph, level: int, slots: torch.Tensor, ids: torch.Tensor, d: torch.Tensor) -> None:
     """Overwrite link rows of ``slots`` at ``level`` in place (slots may be
-    NO_ID); rows are as wide as the table."""
+    NO_ID); rows narrower than the table (``cap`` under link slack) are
+    padded with sentinels."""
+    ids, d = _pad_cols(ids, d, g.links0.shape[-1] if level == 0 else g.upper_links.shape[-1])
     if level == 0:
         _scatter_rows(g.links0, slots, ids)
         _scatter_rows(g.dists0, slots, d)
@@ -129,8 +137,10 @@ def wave_insert_level(
     alpha: float = 1.0,
     inc_cap: int = 16,
     flat: bool = False,
+    expand: int = 1,
     beam_iters: Optional[int] = None,
     beam_tail_allow: int = 0,
+    traverse: Optional[int] = None,
     flat_members: Optional[torch.Tensor] = None,  # [U] compact member slots (-1 pad)
     flat_col_order: Optional[torch.Tensor] = None,  # [U] insertion rank per column
     flat_row_base: int = 0,  # insertion rank of wave row 0
@@ -150,9 +160,15 @@ def wave_insert_level(
        always takes the exact top-k, so it differs there only in what the
        approximate selection misses (level 1 of a 100k build at m=16 has
        about 6.3k members);
-    2. α-prune → forward row scatter;
+    2. α-prune to ``cap`` → forward row scatter;
     3. deterministic reverse-edge merge with overflow α-prune;
     4. at layer 0, the stranded-insert guarantee (``_ensure_inbound``).
+
+    A construction beam expands ``expand`` pool entries per iteration
+    within ``beam_iters`` iterations (default ``(ef + 16) / expand``,
+    rounded up), and only each row's nearest ``traverse`` links (default
+    the full row; at layer 0 the logical ``cap``, which skips slack
+    columns).
 
     ``dirty`` and ``counters`` are updated in place. ``cancel`` is handed
     to the candidate beam (a build's closure raises when it fires).
@@ -186,13 +202,11 @@ def wave_insert_level(
         cand_ids = torch.where(torch.isfinite(cand_d), idx, NO_ID).to(torch.int32)
         cand_ids, cand_d = _pad_cols(cand_ids, cand_d, ef)
     else:
-        # construction beams: ef + 16 expansions; layer 0 expands only the
-        # first ``cap`` links of a row
         res = beam.beam_search(
             g, q, qn, seeds, ef,
-            max_iters=beam_iters if beam_iters is not None else ef + 16,
-            node_ok=node_ok, level=level,
-            traverse_k=cap if level == 0 else None,
+            max_iters=beam_iters if beam_iters is not None else (ef + 16 + expand - 1) // expand,
+            node_ok=node_ok, level=level, expand=expand,
+            traverse_k=traverse if traverse is not None else (cap if level == 0 else None),
             tail_allow=beam_tail_allow if level == 0 else 0,
             cancel=cancel,
         )
@@ -560,6 +574,45 @@ def clear_slots(g: DeviceGraph, slots: torch.Tensor) -> DeviceGraph:
     g.links0[keep] = NO_ID
     g.dists0[keep] = INF
     return g
+
+
+def prune_slack_rows(g: DeviceGraph, dirty: torch.Tensor, cap: int, alpha: float) -> tuple[DeviceGraph, torch.Tensor]:
+    """Bring slack-widened layer-0 rows back to ``cap`` at the end of a
+    build, in place: every row holding more than ``cap`` live links is
+    α-pruned over all of them (distance-sorted, so the rule the reference
+    applies at each overflow, over a richer pool), ``CHUNK_B`` rows per
+    step, in slot order; the rows are marked dirty. Other rows stay as
+    they are."""
+    over = (g.links0 != NO_ID).sum(-1) > cap
+    rows = torch.nonzero(over)[:, 0].to(torch.int32)
+    for p0 in range(0, rows.shape[0], CHUNK_B):
+        slots = rows[p0 : p0 + CHUNK_B]
+        row_ids, row_d = _level_rows(g, 0, slots)
+        p_ids, p_d = prune.robust_prune(g.metric, g.vectors, g.norms, row_ids, row_d, cap, alpha)
+        _set_level_rows(g, 0, slots, p_ids, p_d)
+    dirty |= over
+    return g, dirty
+
+
+def proto_seed_rows(
+    g: DeviceGraph,
+    rest_slots: torch.Tensor,  # [R] wave items about to be inserted (-1 padded)
+    proto_slots: torch.Tensor,  # [P] the previous wave (-1 padded)
+) -> torch.Tensor:
+    """Layer-0 beam seeds of a wave from its nearest prototype → [R, 1 +
+    table width] (chain seeding, ``BuildOptions.chain_seeding``).
+
+    Each item of the wave seeds its beam with its nearest member of the
+    previous wave, which is already inserted and has a freshly pruned row,
+    and that row itself: one [R, P] distance product replaces the items'
+    descents through the upper layers. Ties go to the lower column."""
+    q, qn = g.vectors[_ix(rest_slots)], g.norms[_ix(rest_slots)]
+    pv, pn = g.vectors[_ix(proto_slots)], g.norms[_ix(proto_slots)]
+    d = distances.matrix_distances(g.metric, q, qn, pv, pn)  # [R, P]
+    d = torch.where((proto_slots >= 0)[None, :], d, INF)
+    proto = proto_slots[d.argmin(-1)]
+    links = torch.where((proto >= 0)[:, None], g.links0[_ix(proto)], NO_ID)
+    return torch.cat([proto[:, None], links], dim=-1)
 
 
 def activate_wave(g: DeviceGraph, wave_slots: torch.Tensor) -> DeviceGraph:

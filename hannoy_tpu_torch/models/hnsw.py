@@ -19,9 +19,13 @@ builds. Unlike the JAX package, ``from_device`` keeps them in f32.
 ``HostGraph.load`` / ``flush_links`` read and write the store's links
 records (ids only; ``wave_ops.fill_link_dists`` restores the distances on
 the device). Every ``to_device`` uploads the vectors anew: the JAX
-package's device vector cache is not ported, nor are ``permute*``
-(ROADMAP.md). The JAX package selects the storage tier by environment
-variables; here it is an argument.
+package's device vector cache is not ported (ROADMAP.md). The JAX package
+selects the storage tier by environment variables; here it is an
+argument.
+
+``HostGraph.permute`` and ``permute_device`` renumber slots (the bulk
+build's ``bulk_renumber``): an in-memory layout change only, since the
+store is keyed by item id.
 """
 
 from __future__ import annotations
@@ -241,6 +245,40 @@ class HostGraph:
             self.upper_dists[level - 1][row] = np.inf
             self.upper_links[level - 1][row, :k] = link_slots[:k]
             self.upper_dists[level - 1][row, :k] = link_dists[:k]
+
+    def permute(self, perm: np.ndarray) -> None:
+        """Renumber slots: new slot ``i`` takes old slot ``perm[i]``
+        (``perm`` a bijection over the capacity). Link values are slots and
+        go through the inverse; upper-table rows are not slots and keep
+        their order (only ``slot_rows`` is re-indexed)."""
+        perm = np.asarray(perm, dtype=np.int64)
+        assert perm.shape[0] == self.capacity
+        inv = np.empty_like(perm)
+        inv[perm] = np.arange(self.capacity, dtype=np.int64)
+
+        def remap_vals(table: np.ndarray) -> np.ndarray:
+            return np.where(table >= 0, inv[np.maximum(table, 0)], -1).astype(table.dtype)
+
+        self.permute_host_only(perm, inv)
+        self.links0 = remap_vals(self.links0)[perm]
+        self.dists0 = self.dists0[perm]
+        for l in range(len(self.upper_links)):
+            self.upper_links[l] = remap_vals(self.upper_links[l])
+
+    def permute_host_only(self, perm: np.ndarray, inv: np.ndarray) -> None:
+        """``permute`` without the link tables: for a build that renumbered
+        them on the device (``permute_device``) before ``from_device``
+        brings them back."""
+        self.ids = self.ids[perm]
+        self.levels = self.levels[perm]
+        self.vectors = self.vectors[perm]
+        self.norms = self.norms[perm]
+        for l in range(len(self.slot_rows)):
+            self.slot_rows[l] = self.slot_rows[l][perm]
+        self.entry_slots = [int(inv[e]) for e in self.entry_slots]
+        self.id_to_slot = {int(self.ids[s]): int(s) for s in np.nonzero(self.ids != INVALID_ID)[0]}
+        self.free_slots = np.nonzero(self.ids == INVALID_ID)[0].tolist()
+        self.next_fresh = self.capacity
 
     # -- store I/O ---------------------------------------------------------
     @classmethod
@@ -643,11 +681,15 @@ def device_graph_from_arrays(
     )
 
 
-def to_device(g: HostGraph, device, serve_only: bool = False, tier: str = "raw") -> DeviceGraph:
+def to_device(g: HostGraph, device, serve_only: bool = False, tier: str = "raw", link_slack: int = 0) -> DeviceGraph:
     """Copy a host graph into device tensors on ``device``.
 
     ``serve_only``: search never reads link distances, so readers upload
     ``[1, 1]`` placeholders for ``dists0``/``upper_dists``.
+
+    ``link_slack``: extra layer-0 columns for a build (the table becomes
+    ``[N_pad, M0 + slack]``, the host rows in its first M0 columns, -1 /
+    +inf in the rest; ``build.wave_ops.prune_slack_rows``).
 
     ``tier``: how the rows of an f32 metric are held on the device —
     ``"raw"`` f32, ``"bf16"`` (half the bytes) or ``"int8"`` (a quarter;
@@ -672,16 +714,18 @@ def to_device(g: HostGraph, device, serve_only: bool = False, tier: str = "raw")
         sr = np.zeros((0, g.capacity), dtype=np.int32)
     eps = np.full(ep_pad(len(g.entry_slots)), -1, dtype=np.int32)
     eps[: len(g.entry_slots)] = np.asarray(g.entry_slots, dtype=np.int32)
+    links0, dists0 = g.links0, g.dists0
+    if link_slack:
+        links0 = np.pad(links0, ((0, 0), (0, link_slack)), constant_values=-1)
+        dists0 = np.pad(dists0, ((0, 0), (0, link_slack)), constant_values=np.inf)
     if serve_only:
         dists0, ud = np.zeros((1, 1), np.float32), np.zeros((1, 1, 1), np.float32)
-    else:
-        dists0 = g.dists0
     rows, headers = encode_tier(g.metric, g.vectors, g.norms, "raw" if g.metric.is_packed else tier)
     return device_graph_from_arrays(
         device,
         vectors=rows,
         norms=headers,
-        links0=g.links0,
+        links0=links0,
         dists0=dists0,
         upper_links=up,
         upper_dists=ud,
@@ -693,9 +737,36 @@ def to_device(g: HostGraph, device, serve_only: bool = False, tier: str = "raw")
     )
 
 
+def permute_device(dev: DeviceGraph, perm: torch.Tensor, inv: torch.Tensor) -> DeviceGraph:
+    """Renumber the slots of a device graph → a new ``DeviceGraph``: new
+    slot ``i`` takes old slot ``perm[i]``, and link values and entry slots
+    (slots) go through ``inv``; upper-table rows keep their order, only
+    ``slot_rows`` is re-indexed (``HostGraph.permute`` on the device)."""
+    p, iv = perm.long(), inv.to(torch.int32)
+
+    def remap(t: torch.Tensor) -> torch.Tensor:
+        return torch.where(t >= 0, iv[t.clamp(min=0).long()], -1)
+
+    return DeviceGraph(
+        vectors=dev.vectors[p],
+        norms=dev.norms[p],
+        links0=remap(dev.links0)[p],
+        dists0=dev.dists0[p],
+        upper_links=remap(dev.upper_links),
+        upper_dists=dev.upper_dists,
+        slot_rows=dev.slot_rows[:, p],
+        entry_slots=remap(dev.entry_slots),
+        valid=dev.valid[p],
+        metric_name=dev.metric_name,
+        max_level=dev.max_level,
+    )
+
+
 def from_device(g: HostGraph, dev: DeviceGraph) -> None:
     """Copy the link tables of ``dev`` back into the host mirror (builders
-    sync before the host reads them). Distances stay f32."""
+    sync before the host reads them). Distances stay f32. A slack-widened
+    layer-0 table comes back as its first M0 columns (rows pruned to M0
+    first, ``wave_ops.prune_slack_rows``)."""
     g.links0 = dev.links0[:, : g.m0].cpu().numpy().copy()
     g.dists0 = dev.dists0[:, : g.m0].cpu().numpy().copy()
     up = dev.upper_links.cpu().numpy()

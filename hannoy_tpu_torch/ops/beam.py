@@ -8,8 +8,9 @@ Counterpart of the unfiltered half of ``hannoy_tpu/ops/beam.py``:
   moves to the best neighbor until no query improves.
 * ``beam_search`` ⇔ ``walk_layer`` with ef>1: a fixed-width sorted pool of
   ef (dist, id, expanded) triples per query. Each iteration expands the
-  best unexpanded entry, gathers its neighbors, dedups them against the
-  pool with a compare matrix, computes their distances, and sort-merges.
+  best unexpanded entry (the E best with ``expand``), gathers its
+  neighbors, dedups them against the pool with a compare matrix, computes
+  their distances, and sort-merges.
   A query is done when its best unexpanded distance exceeds its worst
   pooled distance.
 * ``beam_search_filtered`` ⇔ the candidates-bitmap variant: the frontier
@@ -32,7 +33,7 @@ in chunks of a jitted loop with its own runners
 optional ``cancel`` closure, called where the host reads the flag anyway:
 a search's closure returns True to stop the loop there (the pools so far
 are the partial answer), a build's raises ``BuildCancelled``. Without one
-the loops issue no extra host sync. ``expand > 1`` is not ported.
+the loops issue no extra host sync.
 """
 
 from __future__ import annotations
@@ -268,6 +269,7 @@ def beam_search(
     max_iters: Optional[int] = None,
     node_ok: Optional[torch.Tensor] = None,
     level: int = 0,
+    expand: int = 1,
     traverse_k: Optional[int] = None,
     tail_frac: float = 0.0,
     tail_allow: Optional[int] = None,
@@ -276,7 +278,12 @@ def beam_search(
     """Unfiltered beam search at ``level`` (builders run it per layer,
     searches at layer 0).
 
-    ``traverse_k``: expand only the first ``traverse_k`` links of a row.
+    ``expand``: pool entries expanded per iteration (E; at most ``ef``).
+    E > 1 gathers E rows of links per iteration, so about E× fewer
+    iterations (and host-issued hops) cover the same candidates; the
+    default budget is divided by E.
+    ``traverse_k``: expand only the first ``traverse_k`` links of a row
+    (rows are distance-sorted, so its nearest).
     ``node_ok``: traversable-slot mask (default ``g.valid``).
     ``tail_frac`` / ``tail_allow``: stop once at most this many queries
     are still active (0 = the reference's termination); builders size the
@@ -284,13 +291,13 @@ def beam_search(
     ``cancel``: see ``_while_loop``; a cancelled beam returns its pool.
     """
     if max_iters is None:
-        max_iters = 2 * ef + 16
+        max_iters = (2 * ef + 16 + expand - 1) // expand
     if node_ok is None:
         node_ok = g.valid
     if tail_allow is None:
         tail_allow = int(tail_frac * q.shape[0])
     state = _seed_pool(g, q, qn, start, ef, node_ok)
-    body, cond = _beam_step(g, q, qn, node_ok, ef, level, traverse_k, tail_allow)
+    body, cond = _beam_step(g, q, qn, node_ok, ef, level, traverse_k, tail_allow, min(expand, ef))
     (pool_d, pool_id, pool_exp), iters = _while_loop(cond, body, state, max_iters, cancel)
     return BeamResult(pool_d, pool_id, iters, _rows_active(pool_d, pool_id, pool_exp))
 
@@ -322,19 +329,26 @@ def _beam_step(
     level: int,
     traverse_k: Optional[int] = None,
     tail_allow: int = 0,
+    E: int = 1,
 ):
     """(body, cond) for the beam loop over state (pool_d, pool_id,
     pool_exp). ``tail_allow``: keep looping only while *more than* this
-    many queries are active."""
+    many queries are active. ``E``: entries expanded per iteration, the
+    E best unexpanded ones (ties toward the lower position, as
+    ``lax.top_k``); each takes part only while it passes the bound."""
     B = q.shape[0]
 
     def body(state):
         pool_d, pool_id, pool_exp = state
         unexp_d = torch.where((pool_exp == 0) & (pool_id != NO_ID), pool_d, INF)
-        pos = unexp_d.argmin(-1, keepdim=True)  # [B, 1] best unexpanded
-        exp_d = unexp_d.gather(1, pos)
-        active = (exp_d <= pool_d[:, -1:]) & (exp_d < INF)  # [B, 1]
+        if E == 1:
+            pos = unexp_d.argmin(-1, keepdim=True)  # [B, 1] best unexpanded
+            exp_d = unexp_d.gather(1, pos)
+        else:
+            exp_d, pos = topk.smallest_k(unexp_d, E)  # [B, E]
+        active = (exp_d <= pool_d[:, -1:]) & (exp_d < INF)  # [B, E]
 
+        # positions are distinct, so the scatter is deterministic
         mark = torch.zeros_like(pool_exp).scatter(1, pos, active.to(pool_exp.dtype))
         pool_exp = torch.maximum(pool_exp, mark)
 

@@ -64,20 +64,21 @@ class ShardedIndex:
         devices: Sequence,
         serve_only: bool = False,
         tier: str = "raw",
+        link_slack: int = 0,
     ) -> "ShardedIndex":
         """Upload per-shard host graphs (equal capacity, see
         ``pad_to_common_shapes``), shard ``s`` to ``devices[s]``. Each graph
         descends from the deepest shard's height, as in the JAX package's
         stacked layout (a shallower shard's missing layers are empty, and
-        the descent falls through them). ``serve_only`` / ``tier``: see
-        ``models.hnsw.to_device``."""
+        the descent falls through them). ``serve_only`` / ``tier`` /
+        ``link_slack``: see ``models.hnsw.to_device``."""
         devices = make_mesh(devices)
         if len(devices) != len(graphs):
             raise ValueError(f"{len(graphs)} shards for {len(devices)} devices")
         max_level = max(g.max_level for g in graphs)
         devs = []
         for g, d in zip(graphs, devices):
-            dev = to_device(g, d, serve_only=serve_only, tier=tier)
+            dev = to_device(g, d, serve_only=serve_only, tier=tier, link_slack=link_slack)
             dev.max_level = max_level
             devs.append(dev)
         ids = [torch.from_numpy(g.ids.astype(np.int64)).to(d) for g, d in zip(graphs, devices)]
@@ -200,7 +201,12 @@ def build_sharded(
     own device, before wave i+1; the host composes the per-shard schedules
     (``builder.plan_build``) and every candidate search, prune and link
     runs on the shards' devices. ``opts.cancel`` is checked between
-    lockstep waves and inside their loops."""
+    lockstep waves and inside their loops; ``opts.link_slack`` widens every
+    shard's layer-0 table for the waves (``prune_slack_shards`` after
+    them). The waves read no other option but ``ef_construction``,
+    ``alpha`` and ``wave_size``, as in the JAX package. With slack, every
+    shard then runs the single-device builder's stranding re-check
+    (``recheck_shards``), which the JAX package's sharded builds lack."""
     from ..build import builder as _builder
     from ..models.hnsw import slot_capacity
     from ..utils.stats import BuildStats
@@ -227,12 +233,15 @@ def build_sharded(
         graphs.append(g)
     pad_to_common_shapes(graphs)
 
-    index = ShardedIndex.from_host_graphs(graphs, devices)
+    index = ShardedIndex.from_host_graphs(graphs, devices, link_slack=opts.link_slack)
     node_ok = []
     for dev, (_, _, active, exists_ok) in zip(index.graphs, plans):
         dev.valid = torch.from_numpy(active).to(dev.device)
         node_ok.append(torch.from_numpy(exists_ok).to(dev.device))
-    lockstep_waves(index, [(p[0], p[1]) for p in plans], [int(p[2].sum()) for p in plans], node_ok, None, opts)
+    lockstep_waves(index, [(p[0], p[1]) for p in plans], [int(p[2].sum()) for p in plans], node_ok, None, opts, m0)
+    if opts.link_slack:
+        prune_slack_shards(index, None, m0, opts.alpha)
+        recheck_shards(index, node_ok, None, m0, opts, [True] * n_shards)
 
     for g, dev in zip(graphs, index.graphs):
         from_device(g, dev)
@@ -246,13 +255,15 @@ def lockstep_waves(
     node_ok: list[torch.Tensor],
     dirty: Optional[list[torch.Tensor]],
     opts,
+    m0: int,
 ) -> int:
     """Level-descending insertion waves, in lockstep: at each step every
     shard inserts its next chunk of the level's group (its ``wave`` row,
     -1 padded) before any shard starts the next step. The width is the
     single-device ramp gated on the slowest shard (a wave is blind to its
     own members), and while that shard has at most ``FLAT_BOOTSTRAP``
-    items every candidate search is exact. → the number of lockstep
+    items every candidate search is exact. ``m0``: the logical layer-0
+    width (the tables may be slack-widened). → the number of lockstep
     waves."""
     from ..build import builder as _builder
 
@@ -261,7 +272,6 @@ def lockstep_waves(
     n_active = list(n_active)
     sched = [{int(lv): slots[lvls == lv] for lv in np.unique(lvls)} for slots, lvls in schedules]
     W = opts.wave_size
-    m0 = index.graphs[0].m0
     waves = 0
     for lv in range(index.max_level, -1, -1):
         grps = [s.get(lv, np.empty(0, dtype=np.int64)) for s in sched]
@@ -340,6 +350,48 @@ def _insert_wave_on_shards(
             handed[:, :width] = seeds[:, :width]
             seeds = torch.where((res.selected >= 0).any(-1, keepdim=True), res.selected, handed)
         wave_ops.activate_wave(g, w)
+
+
+def prune_slack_shards(index: ShardedIndex, dirty: Optional[list[torch.Tensor]], cap: int, alpha: float) -> None:
+    """The end of a lockstep build with link slack: every shard's layer-0
+    rows back to ``cap`` on its own device (``wave_ops.prune_slack_rows``;
+    the pruned rows are marked in ``dirty`` where it is given)."""
+    from ..build import wave_ops
+
+    for s, g in enumerate(index.graphs):
+        d = dirty[s] if dirty is not None else torch.zeros((g.capacity,), dtype=torch.bool, device=g.device)
+        wave_ops.prune_slack_rows(g, d, cap=cap, alpha=alpha)
+
+
+def recheck_shards(
+    index: ShardedIndex,
+    node_ok: list[torch.Tensor],
+    dirty: Optional[list[torch.Tensor]],
+    m0: int,
+    opts,
+    built: list[bool],
+) -> list[int]:
+    """The end of a lockstep build with link slack: the single-device
+    builder's stranding re-check (``builder.inbound_recheck``) on every
+    shard that ``built``, on its own device. The slack prune α-prunes the
+    rows that overflowed M0 with no regard for the edges ``_ensure_inbound``
+    forced into them, so it can take an item's only in-edge; the JAX
+    package's sharded builds then leave the item unreachable. (Without
+    slack the per-wave guarantee, bounded as it is, is all both packages'
+    lockstep builds give; ROADMAP.md §3.) → re-check waves per shard."""
+    from ..build import builder as _builder
+
+    probe = _builder.cancel_probe(opts.cancel)
+    waves = []
+    for s, g in enumerate(index.graphs):
+        if not built[s]:
+            waves.append(0)
+            continue
+        d = dirty[s] if dirty is not None else torch.zeros((g.capacity,), dtype=torch.bool, device=g.device)
+        counters = torch.zeros((4,), dtype=torch.int32, device=g.device)
+        with span("inbound_recheck", shard=s):
+            waves.append(_builder.inbound_recheck(g, m0, node_ok[s], d, counters, opts, probe)[3])
+    return waves
 
 
 def sharded_insert_wave(

@@ -7,7 +7,10 @@ Counterpart of ``hannoy_tpu/parallel/spmd_build.py``:
    ``Writer._build_prologue``, writer.rs:521-554);
 2. all shards' device builds run in **lockstep** waves — wave i of every
    shard, each on its own device, before wave i+1 — then each shard's
-   deletions are repaired (``builder._repair_deletions``, hnsw.rs:334-415);
+   deletions are repaired (``builder._repair_deletions``, hnsw.rs:334-415)
+   and, after a build with link slack, its layer 0 is re-checked for
+   stranded rows (``sharded.recheck_shards``; the JAX package's SPMD build
+   has no such step);
 3. every shard runs the single-device **epilogue** (link deletion →
    dirty-row flush → metadata / version, ``Writer._build_epilogue``,
    writer.rs:577-600).
@@ -39,7 +42,7 @@ from ..build import wave_ops
 from ..models.hnsw import HostGraph, from_device
 from ..utils.stats import BuildStats
 from ..utils.tracing import span
-from .sharded import ShardedIndex, lockstep_waves, pad_to_common_shapes
+from .sharded import ShardedIndex, lockstep_waves, pad_to_common_shapes, prune_slack_shards, recheck_shards
 
 
 def spmd_store_build(
@@ -76,7 +79,8 @@ def _spmd_device_build(
     tier: str = "raw",
 ) -> None:
     """The steps of ``builder.build_graph`` that the lockstep path runs,
-    S shards at a time: plan, pad, waves, repair, download."""
+    S shards at a time: plan, pad, waves, slack prune, repair, stranding
+    re-check (with slack), download."""
     S = len(plans)
     graphs: list[HostGraph] = [p.g for p in plans]
 
@@ -100,7 +104,7 @@ def _spmd_device_build(
     def padmask(m: np.ndarray) -> np.ndarray:
         return np.pad(m, (0, cap - len(m)), constant_values=False)
 
-    index = ShardedIndex.from_host_graphs(graphs, devices, tier=tier)
+    index = ShardedIndex.from_host_graphs(graphs, devices, tier=tier, link_slack=opts.link_slack)
     node_ok, dirty = [], []
     for dev, dp in zip(index.graphs, dplans):
         dev.valid = torch.from_numpy(padmask(dp[2])).to(dev.device)
@@ -110,9 +114,14 @@ def _spmd_device_build(
     # ---- lockstep level-descending insert waves (hnsw.rs:160-185) ----
     with span("spmd_waves", shards=S):
         waves = lockstep_waves(index, [(dp[0], dp[1]) for dp in dplans], [int(dp[2].sum()) for dp in dplans],
-                               node_ok, dirty, opts)
+                               node_ok, dirty, opts, graphs[0].m0)
     for st in statses:
         st.waves += waves
+
+    # ---- slack rows back to m0 before the repair reads them ----
+    if opts.link_slack:
+        with span("prune_slack_rows", shards=S):
+            prune_slack_shards(index, dirty, graphs[0].m0, opts.alpha)
 
     # ---- deletion repair per shard (fill_gaps_from_deleted) ----
     for s, dset in enumerate(deleted_sets):
@@ -122,6 +131,11 @@ def _spmd_device_build(
             with span("repair_deletions", shard=s, deleted=len(dset)):
                 _builder._repair_deletions(dev, deleted_t, graphs[s].m0, graphs[s].m, opts, dirty[s])
             wave_ops.clear_slots(dev, deleted_t)
+
+    # ---- stranding re-check per shard, after the slack prune ----
+    if opts.link_slack:
+        for st, w in zip(statses, recheck_shards(index, node_ok, dirty, graphs[0].m0, opts, [p.built for p in plans])):
+            st.waves += w
 
     # ---- download: per-shard device graphs → host mirrors ----
     for s, (g, dev) in enumerate(zip(graphs, index.graphs)):

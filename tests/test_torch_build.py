@@ -253,24 +253,6 @@ def test_whole_build_matches_jax(ref, name):
     assert same_links >= 0.98 and min(same_upper) >= 0.98
 
 
-@pytest.mark.parametrize(
-    "change",
-    [
-        dict(link_slack=4),
-        dict(chain_seeding=True),
-        dict(beam_expand=2),
-        dict(traverse=8),
-    ],
-    ids=lambda c: next(iter(c)),
-)
-def test_unported_options_raise(change):
-    data, _ = _data()
-    g = _stage(hnsw, data)
-    with pytest.raises(NotImplementedError):
-        builder.build_graph(g, np.arange(N, dtype=np.int64), np.empty(0, np.int64),
-                            dataclasses.replace(_opts(builder), **change), device="cpu")
-
-
 def test_deleting_a_built_slot_repairs_and_an_unbuilt_one_is_harmless():
     """A build that deletes slot 3 (built) and slot N-1 (staged, never
     built) unlinks 3 from every row and leaves a valid graph; neither slot
@@ -288,18 +270,18 @@ def test_deleting_a_built_slot_repairs_and_an_unbuilt_one_is_harmless():
     assert g.n_items == N - 2 and 3 not in g.entry_slots
 
 
-@pytest.mark.parametrize("flat_max", [builder.BACKBONE_FLAT_MAX, 0], ids=["flat_backbone", "beam_backbone"])
+@pytest.mark.parametrize("flat_max", [builder.BuildOptions().backbone_flat_max, 0], ids=["flat_backbone", "beam_backbone"])
 def test_bulk_default_builds_valid_graph(monkeypatch, flat_max):
     """bulk=None picks the bulk path at >= bulk_threshold fresh items; its
     backbone takes exact triangular candidates, or ramped beam waves once
-    it has more than BACKBONE_FLAT_MAX members."""
+    it has more than ``backbone_flat_max`` members."""
     data, queries = _data()
     g = _stage(hnsw, data)
     ran = []
     monkeypatch.setattr(bulk, "bulk_build", lambda *a, **k: ran.append(1) or bulk_build(*a, **k))
-    monkeypatch.setattr(builder, "BACKBONE_FLAT_MAX", flat_max)
     stats = builder.build_graph(g, np.arange(N, dtype=np.int64), np.empty(0, np.int64),
-                                builder.BuildOptions(ef_construction=EFC, bulk_threshold=1000), device="cpu")
+                                builder.BuildOptions(ef_construction=EFC, bulk_threshold=1000,
+                                                     backbone_flat_max=flat_max), device="cpu")
     assert ran == [1] and stats.links_added > 0
     g.check_validity()
     live = g.valid_mask()
@@ -308,7 +290,7 @@ def test_bulk_default_builds_valid_graph(monkeypatch, flat_max):
     q, qn = _queries(torch.from_numpy, queries)
     res = beam.hnsw_search(hnsw.to_device(g, "cpu", serve_only=True), q, qn, 48)
     rec = _oracle_recall(res.dists.numpy(), data, queries)
-    print(f"default bulk build at N={N}, BACKBONE_FLAT_MAX={flat_max}: recall@10 {rec:.4f}")
+    print(f"default bulk build at N={N}, backbone_flat_max={flat_max}: recall@10 {rec:.4f}")
     assert rec >= 0.9
 
 

@@ -104,9 +104,8 @@ def test_maxmin_indices_match_jax(data):
 def test_kmeans_partition_matches_jax(staged, monkeypatch):
     jdev, tdev = staged
     members = np.arange(N, dtype=np.int64)
-    monkeypatch.setattr(bulk, "INIT_SAMPLE", 4096)
     want = jax_bulk.kmeans_partition(jdev, members, 23, 3, np.random.default_rng(5), init="maxmin", init_sample=4096)
-    got = bulk.kmeans_partition(tdev, members, 23, 3, np.random.default_rng(5))
+    got = bulk.kmeans_partition(tdev, members, 23, 3, np.random.default_rng(5), init="maxmin", init_sample=4096)
     share = float((got == want).mean())
     print(f"kmeans_partition: equal assignments {share:.4f}")
     assert got.shape == want.shape and share >= 0.995
@@ -115,18 +114,19 @@ def test_kmeans_partition_matches_jax(staged, monkeypatch):
 @pytest.mark.parametrize(
     "const, option",
     [
-        (bulk.CLUSTER_SIZE, "bulk_cluster_size"),
-        (bulk.KMEANS_ITERS, "bulk_kmeans_iters"),
-        (bulk.ADJ, "bulk_adj"),
-        (bulk.INIT_SAMPLE, "bulk_init_sample"),
-        (bulk.RAND_CANDIDATES, "bulk_rand"),
-        (builder.BACKBONE_FLAT_MAX, "backbone_flat_max"),
-        (builder.BACKBONE_FLAT_POOL, "backbone_flat_pool"),
+        (512, "bulk_cluster_size"),
+        (3, "bulk_kmeans_iters"),
+        (8, "bulk_adj"),
+        (131072, "bulk_init_sample"),
+        (8, "bulk_rand"),
+        (131072, "backbone_flat_max"),
+        (192, "backbone_flat_pool"),
     ],
 )
 def test_bulk_constants_are_jax_defaults(const, option):
-    """The port runs the bulk path with the JAX package's default knobs."""
-    assert const == getattr(jax_builder.BuildOptions(), option)
+    """The bulk path's settings are ``BuildOptions`` fields with the JAX
+    package's defaults (``const``, the default both packages document)."""
+    assert getattr(builder.BuildOptions(), option) == const == getattr(jax_builder.BuildOptions(), option)
 
 
 @pytest.mark.parametrize(
@@ -293,8 +293,8 @@ def _recall(dists, vecs, queries, name):
 
 
 def _build_both(data, name, spans_expected, jax_opts=None):
-    """Both packages' ``bulk=True`` builds; ``jax_opts`` are the JAX
-    package's options that the port's constants were patched to match."""
+    """Both packages' ``bulk=True`` builds, both given the options
+    ``jax_opts``."""
     vecs, centers = data
     jg = _stage(jax_hnsw, vecs, name)
     jax_builder.build_graph(jg, np.arange(N, dtype=np.int64), np.empty(0, np.int64),
@@ -302,7 +302,8 @@ def _build_both(data, name, spans_expected, jax_opts=None):
     tg = _stage(hnsw, vecs, name)
     with tracing.record() as spans:
         stats = builder.build_graph(tg, np.arange(N, dtype=np.int64), np.empty(0, np.int64),
-                                    builder.BuildOptions(ef_construction=EFC, bulk=True), device="cpu")
+                                    builder.BuildOptions(ef_construction=EFC, bulk=True, **(jax_opts or {})),
+                                    device="cpu")
     assert stats.links_added > 0
     assert set(spans_expected) <= {s.name for s in spans}
     assert np.array_equal(tg.levels, jg.levels)
@@ -336,6 +337,5 @@ def test_bulk_kmeans_path_matches_jax(data, monkeypatch):
     """Above BRUTE_MAX: k-means, cluster blocks, forced cross links."""
     monkeypatch.setattr(jax_bulk, "BRUTE_MAX", 512)
     monkeypatch.setattr(bulk, "BRUTE_MAX", 512)
-    monkeypatch.setattr(bulk, "CLUSTER_SIZE", 256)
     _build_both(data, "cosine", ["bulk_maxmin", "bulk_kmeans", "bulk_adjacency", "bulk_candidates",
                                  "bulk_cross_links"], jax_opts=dict(bulk_cluster_size=256))

@@ -381,10 +381,6 @@ def test_cancelled_build_then_abort_leaves_both_stores_as_they_were(tmp_path, ja
     db.close()
 
 
-def test_check_supported_takes_a_cancel():
-    builder._check_supported(builder.BuildOptions(cancel=lambda: False))
-
-
 # --------------------------------------------------------------------------
 # (c) the JAX package's own cases on the port
 # --------------------------------------------------------------------------

@@ -148,6 +148,74 @@ def test_staged_design_tiles(cuda, name, tier, k):
     assert int(torch.isnan(got).sum()) == 1 and bool(torch.isnan(got[5, k // 2]))
 
 
+@pytest.mark.parametrize("k", [24, 33, 49, 64])
+@pytest.mark.parametrize("tier", ["raw", "bf16", "int8", "packed"])
+def test_option_widths_match_twin(cuda, tier, k):
+    """The build options' hop widths: [W, traverse] (24), [W, 1 + M0 + 16]
+    chain seeds at M0 = 32 with slack 16 (49), [W, E·M0] at E = 2 (64), and
+    a one-candidate tail tile (33). Each row ends in a run of -1 (the
+    rows of inactive expansions, a truncated row's padding) of its own
+    length, one row is all -1, and one index lies past the store."""
+    name = "hamming" if tier == "packed" else "cosine"
+    if tier == "packed":
+        from hannoy_tpu_torch.ops import codecs
+
+        rng = np.random.default_rng(41)
+        metric = distances.HAMMING
+        lanes = codecs.pack(rng.standard_normal((3000, 768)).astype(np.float32), metric.codec)
+        rows = torch.from_numpy(distances.as_lanes(lanes)).to(cuda)
+        norms = torch.from_numpy(distances.np_norms(metric, lanes)).to(cuda)
+        q, qn = rows[:53].contiguous(), norms[:53].contiguous()
+    else:
+        metric, rows, norms, rng = _tier_store(cuda, name, tier, seed=41)
+        q = torch.from_numpy(rng.standard_normal((53, 768)).astype(np.float32)).to(cuda)
+        qn = torch.from_numpy(distances.np_norms(metric, q.cpu().numpy())).to(cuda)
+    idx = rng.integers(0, rows.shape[0], (53, k)).astype(np.int32)
+    tails = rng.integers(0, k, 53)
+    idx[np.arange(k)[None, :] >= (k - tails)[:, None]] = -1
+    idx[7] = -1
+    idx[11, 0] = rows.shape[0]
+    idx = torch.from_numpy(idx).to(cuda)
+    if tier == "packed":
+        got = beam_cuda.gathered_distances(metric, rows, norms, q, qn, idx)
+        torch.cuda.synchronize()
+        want = beam_cuda.gathered_distances_plain(metric, rows, norms, q, qn, idx)
+        assert torch.equal(torch.isnan(got), torch.isnan(want)) and bool(torch.isnan(got[11, 0]))
+        keep = ~torch.isnan(want)
+        assert torch.equal(got[keep], want[keep])
+    else:
+        got = _check_against_twin(metric, rows, norms, q, qn, idx, "staged")
+        assert int(torch.isnan(got).sum()) == 1 and bool(torch.isnan(got[11, 0]))
+
+
+@pytest.mark.parametrize("change", [dict(bulk=False, beam_expand=2), dict(bulk=False, traverse=24),
+                                    dict(bulk=False, link_slack=16), dict(bulk=True, bulk_backbone=False, bulk_upper=1),
+                                    dict(bulk=True, backbone_flat=False)],
+                         ids=lambda c: "-".join(f"{k}={v}" for k, v in c.items() if k != "bulk"))
+def test_option_builds_on_cuda_match_cpu(cuda, change):
+    """A build with each option (1500 x 32, m0 = 32) on the card against the
+    same build on the CPU: the kernel sums in another order, so near-ties
+    may flip (95% of links0 rows, the same levels and entry points)."""
+    data, _ = _clustered(1500)
+    graphs = []
+    for dev in ("cpu", cuda):
+        g = hnsw.HostGraph.empty(distances.COSINE, 32, 16, 32, capacity=hnsw.slot_capacity(1500))
+        for i in range(1500):
+            g.alloc_slot(i)
+        g.vectors[:1500] = data
+        g.norms[:1500] = distances.np_norms(distances.COSINE, data)
+        builder.build_graph(g, np.arange(1500), np.empty(0, np.int64),
+                            builder.BuildOptions(ef_construction=48, wave_size=128, **change), device=dev)
+        g.check_validity()
+        graphs.append(g)
+    a, b = graphs
+    assert np.array_equal(a.levels, b.levels) and a.entry_slots == b.entry_slots
+    live = a.valid_mask()
+    share = float(np.mean(np.all(a.links0[live] == b.links0[live], axis=1)))
+    print(f"{change} cuda vs cpu: identical links0 rows {share:.4f}")
+    assert share >= 0.95
+
+
 @pytest.mark.parametrize("dim", [768, 130, 37])
 @pytest.mark.parametrize("tier", ["raw", "bf16", "int8"])
 def test_design_follows_the_row_width(cuda, tier, dim):

@@ -265,7 +265,6 @@ def test_packed_bulk_build_holds_recall(bulk_data, name, monkeypatch):
     """As ``tests/test_bulk.py::test_bulk_packed_metrics`` holds the JAX
     package: the k-means path, validity, recall >= min(0.93, wave - 0.02)."""
     monkeypatch.setattr(bulk, "BRUTE_MAX", 1024)
-    monkeypatch.setattr(bulk, "CLUSTER_SIZE", 256)
     data, queries = bulk_data
     metric = distances.by_name(name)
     assert bulk.eligible(metric, 0, 0, 10_000, builder.BuildOptions())
@@ -275,7 +274,8 @@ def test_packed_bulk_build_holds_recall(bulk_data, name, monkeypatch):
         g = _stage(hnsw, data, name)
         with tracing.record() as spans:
             builder.build_graph(g, n, np.empty(0, np.int64),
-                                builder.BuildOptions(ef_construction=EFC, bulk=use_bulk), device="cpu")
+                                builder.BuildOptions(ef_construction=EFC, bulk=use_bulk, bulk_cluster_size=256),
+                                device="cpu")
         g.check_validity()
         names = {s.name for s in spans}
         assert ({"bulk_kmeans", "bulk_candidates", "bulk_cross_links"} <= names) == use_bulk
@@ -289,14 +289,14 @@ def test_packed_bulk_build_matches_jax(bulk_data, monkeypatch):
     name = "binary quantized cosine"
     monkeypatch.setattr(jax_bulk, "BRUTE_MAX", 1024)
     monkeypatch.setattr(bulk, "BRUTE_MAX", 1024)
-    monkeypatch.setattr(bulk, "CLUSTER_SIZE", 256)
     data, queries = bulk_data
     n = np.arange(N_BULK, dtype=np.int64)
     jg = _stage(jax_hnsw, data, name)
     jax_builder.build_graph(jg, n, np.empty(0, np.int64),
                             jax_builder.BuildOptions(ef_construction=EFC, bulk=True, bulk_cluster_size=256))
     tg = _stage(hnsw, data, name)
-    builder.build_graph(tg, n, np.empty(0, np.int64), builder.BuildOptions(ef_construction=EFC, bulk=True), device="cpu")
+    builder.build_graph(tg, n, np.empty(0, np.int64),
+                        builder.BuildOptions(ef_construction=EFC, bulk=True, bulk_cluster_size=256), device="cpu")
     tg.check_validity()
     np.testing.assert_array_equal(tg.levels, jg.levels)
     assert tg.entry_slots == jg.entry_slots
@@ -319,9 +319,8 @@ def test_packed_kmeans_partition_matches_jax(bulk_data, monkeypatch):
     np.testing.assert_array_equal(
         bulk._maxmin_indices(geom, 20).numpy(), np.asarray(jax_bulk._maxmin_indices(jnp.asarray(geom.numpy()), 20)))
     members = np.arange(3000, dtype=np.int64)
-    monkeypatch.setattr(bulk, "INIT_SAMPLE", 2048)
     want = jax_bulk.kmeans_partition(jdev, members, 12, 3, np.random.default_rng(5), init="maxmin", init_sample=2048)
-    got = bulk.kmeans_partition(tdev, members, 12, 3, np.random.default_rng(5))
+    got = bulk.kmeans_partition(tdev, members, 12, 3, np.random.default_rng(5), init="maxmin", init_sample=2048)
     share = float((got == want).mean())
     print(f"packed kmeans_partition: equal assignments {share:.4f}")
     assert share >= 0.995

@@ -307,11 +307,11 @@ def test_tier_bulk_build_and_its_adjacency(monkeypatch):
     their header, which is 0 for a centroid, so there every cluster gets
     the same neighbours (the divergence ROADMAP.md records)."""
     monkeypatch.setattr(bulk, "BRUTE_MAX", 512)
-    monkeypatch.setattr(bulk, "CLUSTER_SIZE", 256)
     data, queries = _clustered(3000, D)
     tg = _stage(hnsw, data, "euclidean")
     builder.build_graph(tg, np.arange(3000, dtype=np.int64), np.empty(0, np.int64),
-                        builder.BuildOptions(ef_construction=EFC, bulk=True), device="cpu", tier="int8")
+                        builder.BuildOptions(ef_construction=EFC, bulk=True, bulk_cluster_size=256), device="cpu",
+                        tier="int8")
     tg.check_validity()
     dev = hnsw.to_device(tg, "cpu", serve_only=True, tier="int8")
     res = beam.hnsw_search(dev, torch.from_numpy(queries), torch.zeros(len(queries)), 64)
