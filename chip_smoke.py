@@ -19,8 +19,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    store in the bf16 and int8 tiers (the port's encoders) for the three
    metrics, and a random store of 768-bit packed rows for hamming and the
    three binary quantized metrics, at the first three shapes (and the
-   tiers' cosine at [512, 64] too) (tiers: 1e-5 relative,
+   tiers' cosine at [512, 64] too; packed rows also at the BQ wave hop of
+   narrower waves [1024, 32] and the descent's [128, 32], and on a second
+   store of 1,000,000 rows, 96 MB, past the L2 cache, at [4096, 32] and
+   [256, 32] for hamming and BQ cosine) (tiers: 1e-5 relative,
    summation order only; packed: bit-equal, BQ cosine 1.2e-7 absolute).
+   For each packed store and metric the launch floor — one pair a launch,
+   [1, 1], timed the same way — is printed on a line of its own and beside
+   each packed case.
    Every case also checks that an index past the store gives NaN and, for
    the tiers, a query gathered from the store (a build's), which under a
    difference metric must find its own row at exactly 0. Each time is
@@ -143,8 +149,9 @@ family (dot: cosine; difference: euclidean, manhattan; popcount: the
 packed metrics) — with the launches that phases 5-11 made in that form,
 each step counted from 0, the kernel design that served them, and as its
 headline the phase-3 case of the shape those phases launch most. The run
-fails if a form was never launched, or if an f32, bf16 or int8 launch of
-phases 5-11 (all at 768-wide rows) did not take the staged design. Phase 3
+fails if a form was never launched, or if a launch of phases 5-11 (all at
+768-wide rows, whole 16-byte units) did not take the design for such rows:
+the staged design for f32, bf16 and int8, the pair design for packed rows. Phase 3
 also gives each case's per-pair floor (each pair's row read once) beside
 its bound. ``--kernel-only`` stops after phase 3. It needs no network
 and imports nothing of JAX.
@@ -185,6 +192,14 @@ PACKED_SHAPES = ((1024, 32), (128, 32))
 #: cosine and euclidean, bf16 and int8 cosine, and BQ cosine
 OPTION_SHAPES = ((4096, 24), (4096, 33), (4096, 49), (4096, 64))
 PACKED_METRICS = ("hamming", "binary quantized cosine", "binary quantized euclidean", "binary quantized manhattan")
+#: a packed store past the 50 MB L2 cache (96 MB of 768-bit rows: what a
+#: BQ index of a million items reads), timed at the wave hop and the
+#: search hop for hamming and BQ cosine
+N_PAST_L2 = 1_000_000
+PAST_L2_SHAPES = ((4096, 32), (256, 32))
+PAST_L2_METRICS = ("hamming", "binary quantized cosine")
+#: launches a CUDA-event pair brackets for the launch floor ([1, 1])
+FLOOR_LAUNCHES = 1024
 #: phase 7: items of the HAMMING wave build
 N_HAMMING = 20_000
 #: phase 8: (metric, tier, build) cells; euclidean "raw" gives the f32
@@ -317,16 +332,17 @@ def pair_floor(b: int, k: int, row_bytes: int, q_bytes: int, header: bool) -> fl
     return (b * k * (row_bytes + head) + b * (q_bytes + head) + b * k * 8) / HBM_BYTES_PER_S * 1e3
 
 
-def _index_sets(gen, device, make_query, b: int, k: int, tails: bool = False):
-    """``INDEX_SETS`` × (q, qn, idx) with 5% of the indices at -1; with
-    ``tails``, each row also ends in a run of -1 of random length (a hop
-    over truncated rows or inactive expansions)."""
+def _index_sets(gen, device, make_query, b: int, k: int, tails: bool = False, n: int = 0):
+    """``INDEX_SETS`` × (q, qn, idx) into a store of ``n`` rows (``N`` when
+    0), with 5% of the indices at -1; with ``tails``, each row also ends in
+    a run of -1 of random length (a hop over truncated rows or inactive
+    expansions)."""
     import torch
 
     sets = []
     for _ in range(INDEX_SETS):
         q, qn = make_query(b)
-        idx = torch.randint(0, N, (b, k), generator=gen, device=device, dtype=torch.int32)
+        idx = torch.randint(0, n or N, (b, k), generator=gen, device=device, dtype=torch.int32)
         idx[torch.rand((b, k), generator=gen, device=device) < 0.05] = -1
         if tails:
             cut = torch.randint(1, k + 1, (b, 1), generator=gen, device=device)
@@ -335,12 +351,13 @@ def _index_sets(gen, device, make_query, b: int, k: int, tails: bool = False):
     return sets
 
 
-def kernel_case(metric, row: str, store, norms, sets, tol: str, row_bytes: int, q_bytes: int, ops: int, build_query=None) -> dict:
+def kernel_case(metric, row: str, store, norms, sets, tol: str, row_bytes: int, q_bytes: int, ops: int, build_query=None,
+                floor_ms: float | None = None) -> dict:
     """One phase-3 case: the kernel against its twin on ``sets[0]`` (also
     with one index past the store, which must give NaN, and with
     ``build_query`` = (q, qn) gathered from the store), then both timed
     over all the sets. ``tol``: "abs" 1e-5, "rel" 1e-5, "exact", or "ulp"
-    (1.2e-7 absolute)."""
+    (1.2e-7 absolute). ``floor_ms``: the launch floor, printed beside."""
     import torch
 
     from hannoy_tpu_torch.ops import beam_cuda
@@ -363,7 +380,7 @@ def kernel_case(metric, row: str, store, norms, sets, tol: str, row_bytes: int, 
     ok, max_abs, max_rel = errors(got, want)
     # an index past the store gives NaN there and changes nothing else
     past = idx.clone()
-    past[0, 0] = N
+    past[0, 0] = store.shape[0]
     marked = beam_cuda.gathered_distances(metric, store, norms, q, qn, past)
     ok = ok and bool(torch.isnan(marked[0, 0])) and int(torch.isnan(marked).sum()) == 1
     ok = ok and bool(torch.equal(marked.flatten()[1:], got.flatten()[1:]))
@@ -385,40 +402,45 @@ def kernel_case(metric, row: str, store, norms, sets, tol: str, row_bytes: int, 
     family = beam_cuda.form_of(metric, store.dtype)[1]
     header = name in ("cosine", "binary quantized cosine") or (row == "int8" and family == "difference")
     bound_ms, bound_by = bound(b, k, rows, row_bytes, q_bytes, header, ops)
-    floor_ms = pair_floor(b, k, row_bytes, q_bytes, header)
+    pair_ms = pair_floor(b, k, row_bytes, q_bytes, header)
     case = {
-        "form": f"{row}/{family}", "metric": name, "shape": [b, k, store.shape[1]], "tolerance": tol,
+        "form": f"{row}/{family}", "metric": name, "shape": [b, k, store.shape[1]], "store_rows": store.shape[0],
+        "tolerance": tol,
         "design": beam_cuda.design_of(store.dtype, metric, store.shape[1], True),
         "max_abs_err": max_abs, "max_rel_err": max_rel,
         "ms": per_launch_ms(kernel_fns, launches),
         "plain_ms": per_launch_ms(plain_fns, max(8, launches // 8)),
-        "bound_ms": bound_ms, "bound_by": bound_by, "distinct_rows": rows, "pair_floor_ms": floor_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "distinct_rows": rows, "pair_floor_ms": pair_ms,
         "launches_per_event_pair": launches,
     }
     case["roofline_share"] = bound_ms / case["ms"]
-    case["pair_floor_share"] = floor_ms / case["ms"]
-    print(f"kernel {row} {name} [{b},{k},{store.shape[1]}] ({case['design']}): max_abs_err {max_abs:.3e} "
-          f"max_rel_err {max_rel:.3e} ({tol}) kernel {case['ms']:.5f} ms plain {case['plain_ms']:.5f} ms "
-          f"bound {bound_ms:.5f} ms ({bound_by}, {rows:.0f} distinct rows; share {case['roofline_share']:.3f}); "
-          f"per-pair floor {floor_ms:.5f} ms (share {case['pair_floor_share']:.3f}); "
-          f"{launches} launches per event pair", flush=True)
+    case["pair_floor_share"] = pair_ms / case["ms"]
+    beside = ""
+    if floor_ms is not None:
+        case["launch_floor_ms"] = floor_ms
+        beside = f"launch floor {floor_ms:.5f} ms (x {case['ms'] / floor_ms:.3f}); "
+    print(f"kernel {row} {name} [{b},{k},{store.shape[1]}] of {store.shape[0]} rows ({case['design']}): "
+          f"max_abs_err {max_abs:.3e} max_rel_err {max_rel:.3e} ({tol}) kernel {case['ms']:.5f} ms plain "
+          f"{case['plain_ms']:.5f} ms bound {bound_ms:.5f} ms ({bound_by}, {rows:.0f} distinct rows; share "
+          f"{case['roofline_share']:.3f}); per-pair floor {pair_ms:.5f} ms (share {case['pair_floor_share']:.3f}); "
+          f"{beside}{launches} launches per event pair", flush=True)
     if not ok:
         raise AssertionError(f"kernel disagrees with its twin: {case}")
     return case
 
 
-def check_kernel(device) -> list[dict]:
+def check_kernel(device) -> tuple[list[dict], list[dict]]:
     """Phase 3: every form of the kernel against its plain twin at the
-    main path's shapes."""
+    main path's shapes → the cases, and the packed launch floors."""
     import torch
 
     from hannoy_tpu_torch.models import hnsw
-    from hannoy_tpu_torch.ops import distances
+    from hannoy_tpu_torch.ops import beam_cuda, distances
 
     gen = torch.Generator(device=device).manual_seed(0)
     store = torch.randn((N, DIM), generator=gen, device=device)
     zeros = torch.zeros(N, device=device)
-    cases = []
+    cases, floors = [], []
 
     def f32_query(name):
         def make(b):
@@ -453,24 +475,41 @@ def check_kernel(device) -> list[dict]:
             del t_rows, t_norms
     del host
 
-    # packed rows: 768 random bits a row, as int32 lanes
+    # packed rows: 768 random bits a row, as int32 lanes, in a store of N
+    # rows (in L2) and one of N_PAST_L2 (past it)
     lanes = DIM // 32
-    packed = torch.randint(-(2**31), 2**31, (N, lanes), generator=gen, device=device, dtype=torch.int64).to(torch.int32)
-    for name in PACKED_METRICS:
-        metric = distances.by_name(name)
-        fill = float(np.sqrt(np.float32(DIM))) if name == "binary quantized cosine" else 0.0
-        norms = torch.full((N,), fill, device=device)
+    del store, zeros
+    for n_rows in (N, N_PAST_L2):
+        packed = torch.randint(-(2**31), 2**31, (n_rows, lanes), generator=gen, device=device,
+                               dtype=torch.int64).to(torch.int32)
+        for name in PACKED_METRICS if n_rows == N else PAST_L2_METRICS:
+            metric = distances.by_name(name)
+            fill = float(np.sqrt(np.float32(DIM))) if name == "binary quantized cosine" else 0.0
+            norms = torch.full((n_rows,), fill, device=device)
 
-        def packed_query(b, fill=fill):
-            q = torch.randint(-(2**31), 2**31, (b, lanes), generator=gen, device=device, dtype=torch.int64).to(torch.int32)
-            return q, torch.full((b,), fill, device=device)
+            def packed_query(b, fill=fill):
+                q = torch.randint(-(2**31), 2**31, (b, lanes), generator=gen, device=device,
+                                  dtype=torch.int64).to(torch.int32)
+                return q, torch.full((b,), fill, device=device)
 
-        extra = PACKED_SHAPES + (OPTION_SHAPES if name == "binary quantized cosine" else ())
-        for b, k in NEW_FORM_SHAPES + extra:
-            sets = _index_sets(gen, device, packed_query, b, k, tails=(b, k) in OPTION_SHAPES)
-            cases.append(kernel_case(metric, "packed", packed, norms, sets,
-                                     "ulp" if name == "binary quantized cosine" else "exact", lanes * 4, lanes * 4, lanes * 3))
-    return cases
+            # the launch floor: one pair a launch, timed like every case
+            one = _index_sets(gen, device, packed_query, 1, 1, n=n_rows)
+            floor_ms = per_launch_ms([lambda s=s: beam_cuda.gathered_distances(metric, packed, norms, *s) for s in one],
+                                     FLOOR_LAUNCHES)
+            print(f"launch floor: packed {name} [1,1,{lanes}] of {n_rows} rows "
+                  f"({beam_cuda.design_of(packed.dtype, metric, lanes, True)}): {floor_ms:.5f} ms", flush=True)
+            floors.append({"metric": name, "store_rows": n_rows, "ms": floor_ms})
+            if n_rows == N:
+                shapes = NEW_FORM_SHAPES + PACKED_SHAPES + (OPTION_SHAPES if name == "binary quantized cosine" else ())
+            else:
+                shapes = PAST_L2_SHAPES
+            for b, k in shapes:
+                sets = _index_sets(gen, device, packed_query, b, k, tails=(b, k) in OPTION_SHAPES, n=n_rows)
+                cases.append(kernel_case(metric, "packed", packed, norms, sets,
+                                         "ulp" if name == "binary quantized cosine" else "exact", lanes * 4, lanes * 4,
+                                         lanes * 3, floor_ms=floor_ms))
+        del packed, norms
+    return cases, floors
 
 
 def bench_data(rng: np.random.Generator, n: int = 0) -> tuple[np.ndarray, np.ndarray]:
@@ -1867,7 +1906,7 @@ def main() -> int:
     native_env.load_library()
     print(f"store library built: {os.path.relpath(native_env.library_path())} in {time.perf_counter() - t0:.2f} s", flush=True)
 
-    cases = check_kernel(device)  # phase 3
+    cases, floors = check_kernel(device)  # phase 3
     phase_s: dict[str, float] = {}
     clock = [time.perf_counter()]
 
@@ -1922,13 +1961,15 @@ def main() -> int:
                 c[f"launches_{path}"] = res["build_launches_by_shape"].get(key, 0) + res["search_launches_by_shape"].get(key, 0)
             c["launches_api_path"] = sum(step.get(key, 0) for step in api["launches_by_shape"].values())
 
-    # every f32, bf16 and int8 launch of the main path (all at 768-wide
-    # rows, whole 16-byte units) went through the staged design
+    # every launch of the main path (all at 768-wide rows, whole 16-byte
+    # units) went through the design for such rows: f32, bf16 and int8 the
+    # staged design, packed rows the pair design
     designs = {f"{row}/{design}": n for (row, design), n in sorted(MAIN_DESIGNS.items())}
     print(f"main path launches per row type and design: {json.dumps(designs)}", flush=True)
-    for row in ("f32", "bf16", "int8"):
-        if MAIN_DESIGNS.get((row, "warp"), 0) or not MAIN_DESIGNS.get((row, "staged"), 0):
-            raise AssertionError(f"the main path's {row} launches did not all go through the staged design: {designs}")
+    for row, design, other in (("f32", "staged", "warp"), ("bf16", "staged", "warp"), ("int8", "staged", "warp"),
+                               ("packed", "pair", "group")):
+        if MAIN_DESIGNS.get((row, other), 0) or not MAIN_DESIGNS.get((row, design), 0):
+            raise AssertionError(f"the main path's {row} launches did not all go through the {design} design: {designs}")
 
     # one entry per form; its headline is the timed case of the metric the
     # main path drives in that form, at the shape it launches most
@@ -1939,8 +1980,8 @@ def main() -> int:
         if main["launches"] == 0:
             raise AssertionError(f"the main path (phases 5-11) never launched the kernel's {form} form: {MAIN_PATH}")
         own = [c for c in cases if c["form"] == form]
-        for c in own:
-            c["launches_main_path"] = main["by_shape"].get(f"{c['shape'][0]}x{c['shape'][1]}", 0)
+        for c in own:  # the main path's stores are of N items
+            c["launches_main_path"] = main["by_shape"].get(f"{c['shape'][0]}x{c['shape'][1]}", 0) if c["store_rows"] == N else 0
         head = max((c for c in own if c["metric"] == driven[form.split("/")[1]]), key=lambda c: c["launches_main_path"])
         print(f"form {form}: {main['launches']} launches on the main path {json.dumps(main['by_shape'])}; headline "
               f"{head['metric']} {head['shape']}: {head['ms']:.5f} ms, bound {head['bound_ms']:.5f} ms", flush=True)
@@ -1962,7 +2003,7 @@ def main() -> int:
         })
     # everything measured, on one line of its own ahead of the closing
     # three (which stay short): every timed case and every path's record
-    print("detail " + json.dumps({"cases": cases, "phase_seconds": phase_s, "paths": {
+    print("detail " + json.dumps({"cases": cases, "launch_floors": floors, "phase_seconds": phase_s, "paths": {
         "wave_build": waves, "default_build": default, "api_path": api, "packed_path": packed, "tier_path": tiers,
         "delete_filter_path": deletes, "sharded_path": sharded, "options_path": options}}))
     kernels = {"kernels": entries}

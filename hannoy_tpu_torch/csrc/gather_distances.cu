@@ -29,14 +29,20 @@
 //           2·pc, bq cosine (1 - (d_pad - 2·pc)/(qn·norm))/2, 0 where
 //           qn·norm == 0; d_pad = 32·lanes.
 //
-// What bounds each form on the H100: device memory, everywhere. A hop
-// reads B*K randomly placed rows (403 MB of f32 rows at B=4096, K=32,
-// D=768; a half of that in bf16, a quarter in int8, 12.6 MB packed) for at
+// What bounds each form on the H100. f32, bf16 and int8 rows: device
+// memory. A hop reads B*K randomly placed rows (403 MB of f32 rows at
+// B=4096, K=32, D=768; a half of that in bf16, a quarter in int8) for at
 // most 3 operations an element, two orders of magnitude below the 295
-// operations a byte where the card stops being memory-bound. So a form is
-// as fast as it keeps rows in flight from HBM; a pair's chain of dependent
-// memory trips (its index, then its row, then its headers) is what stands
-// in the way when rows are small.
+// operations a byte where the card stops being memory-bound; so a form is
+// as fast as it keeps rows in flight from HBM. Packed rows are 96 bytes
+// (768 bits): a store of the main path's 100k items is 9.6 MB and sits
+// whole in the 50 MB L2, so there the latency of a pair's chain of
+// dependent memory trips (its index, then its row) and the L2's request
+// rate bound the form, not HBM bytes; only a store past L2 (about 520k
+// items of 768 bits and more) is bound by its bytes over HBM, read at
+// random. A hop of B*K packed pairs moves 12.6 MB at [4096, 32] and under
+// 1 MB at the search hop [256, 32], where the launch itself is most of
+// the time.
 //
 // Two designs for f32, bf16 and int8 rows; ops/beam_cuda.py:design_of
 // picks one per launch and passes it in:
@@ -67,12 +73,27 @@
 //           elements where rows are not whole 16-byte units) and the query
 //           beside it, reduces with warp shuffles, and lane 0 applies the
 //           epilogue.
-// Packed rows are short (768 bits = 24 lanes = 96 bytes = six 16-byte
-// loads), so a whole warp would leave most of its lanes idle: eight
-// threads take one pair, four pairs to a warp, reduced over the eight by
-// shuffles. At the search hop [256, 32] a packed launch moves under 1 MB:
-// its bytes bound is far below the cost of a launch, and what it loses
-// there only fewer launches can win back.
+// Two designs for packed rows:
+//   pair    (rows that are whole 16-byte units from 16-byte aligned bases:
+//           every packed launch of the main path): two threads a (b, k)
+//           pair, each holding half of the row's units in registers, so
+//           that every lane loads, one instruction of a pair reads a whole
+//           32-byte sector, and a thread has three 16-byte loads in flight
+//           (768 bits). Two trips a pair: the index, issued first, with the
+//           query's units and qn in flight beside it (they do not depend on
+//           it); then the row's units and, under BQ cosine, its norm, all
+//           at once. One shuffle a pair. Blocks shrink to one warp at small
+//           B*K so that [128, 32] and [256, 32] spread over the SMs. The
+//           query is read per pair through L1, off the chain, not staged
+//           in shared memory: a staged query (by cp.async or by plain
+//           loads) adds a wait and a barrier to every launch that cost
+//           more than the re-reads. One thread a pair (two 16-byte
+//           requests for each 32-byte sector), four threads a pair, and
+//           rows pulled in by warp-issued cp.async (the staged design's
+//           pattern) were all slower on the main path's shapes (PERF.md
+//           §6 has the measurements).
+//   group   (rows of other widths or bases): eight threads a pair, lane by
+//           lane, reduced over the eight by shuffles.
 //
 // Built by hannoy_tpu_torch/ops/beam_cuda.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -101,7 +122,8 @@ constexpr int kRowPacked = 3;
 
 constexpr int kDesignWarp = 0;
 constexpr int kDesignStaged = 1;
-constexpr int kDesignPacked = 2;
+constexpr int kDesignGroup = 2;
+constexpr int kDesignPair = 3;
 
 constexpr float kEps = 1.1920929e-07f;  // f32::EPSILON
 constexpr int kWarpsPerBlock = 8;
@@ -110,6 +132,10 @@ constexpr int kPackedPairsPerBlock = kWarpsPerBlock * 32 / kPackedGroup;
 constexpr int kTile = 32;  // candidates per block of the staged design: every K the main path launches (8, 16, 32)
 constexpr int kRowsPerWarp = kTile / kWarpsPerBlock;  // staged design: rows a warp stages and reduces
 static_assert(kRowsPerWarp <= 4, "the staged kernel waits on at most 4 copy groups a warp");
+constexpr int kPairThreads = 2;  // pair design: threads a (b, k) pair
+constexpr int kPairUnits = 4;  // pair design: 16-byte units of a row a thread holds at once
+constexpr int kPairBlock = 256;  // pair design: the most threads a block takes
+constexpr int kSms = 132;  // the H100's SMs: a pair launch spreads over at least this many blocks where it can
 
 template <int METRIC>
 __device__ __forceinline__ float step(float acc, float q, float r) {
@@ -470,9 +496,85 @@ gather_staged_kernel(const ROW* __restrict__ vectors,
   }
 }
 
-// Packed rows: kPackedGroup threads per (b, k). Every thread of a warp
-// stays to the end (no early return) so that the shuffles see full groups.
-template <int METRIC, bool VEC>
+// The packed epilogue: the distance from the popcount pc of a row of
+// `lanes` 32-bit lanes; `prod` = qn * norm (read by BQ cosine only).
+template <int METRIC>
+__device__ __forceinline__ float packed_distance(int pc, int lanes, float prod) {
+  const float pcf = static_cast<float>(pc);
+  const float d_pad = static_cast<float>(lanes) * 32.f;
+  if (METRIC == kHamming) return pcf / d_pad;
+  if (METRIC == kBqEuclidean) return 4.f * pcf;
+  if (METRIC == kBqManhattan) return 2.f * pcf;
+  const float cosv = (d_pad - 2.f * pcf) / (prod != 0.f ? prod : 1.f);
+  return prod != 0.f ? (1.f - cosv) * 0.5f : 0.f;
+}
+
+__device__ __forceinline__ int popc_xor(const uint4& a, const uint4& c) {
+  return __popc(a.x ^ c.x) + __popc(a.y ^ c.y) + __popc(a.z ^ c.z) + __popc(a.w ^ c.w);
+}
+
+// Packed rows that are whole 16-byte units from aligned bases (768 bits:
+// six units), kPairThreads threads a (b, k) pair: a block takes
+// blockDim.x / kPairThreads consecutive pairs, and thread h of a pair takes
+// units h, h + 2, ... of its row, so that one instruction of the pair's two
+// threads reads one whole 32-byte sector. Trip 1: the pair's index, issued
+// first; the query's units (and qn) do not wait for it and are in flight
+// beside it. Trip 2: the row's units, up to kPairUnits a thread at once in
+// registers, and under BQ cosine the row's norm, all issued together. One
+// shuffle adds the two halves.
+template <int METRIC>
+__global__ void __launch_bounds__(kPairBlock)
+gather_popcount_pair_kernel(const uint4* __restrict__ vectors,
+                            const float* __restrict__ norms,
+                            const uint4* __restrict__ q,
+                            const float* __restrict__ qn,
+                            const int32_t* __restrict__ idx,
+                            float* __restrict__ out,
+                            int64_t n_rows, int units, int64_t n_pairs, int k) {
+  constexpr int G = kPairThreads, H = kPairUnits;
+  const int h = threadIdx.x % G;
+  const int64_t pair = static_cast<int64_t>(blockIdx.x) * (blockDim.x / G) + threadIdx.x / G;
+  const bool live = pair < n_pairs;
+  int64_t row = live ? static_cast<int64_t>(__ldg(idx + pair)) : 0;
+  const int64_t b = live ? pair / k : 0;
+  const uint4* qq = q + b * units + h;
+  uint4 a[H];
+#pragma unroll
+  for (int j = 0; j < H; ++j) {
+    if (h + G * j < units) a[j] = __ldg(qq + G * j);
+  }
+  const float q_norm = METRIC == kBqCosine ? __ldg(qn + b) : 0.f;
+
+  const bool in_range = row < n_rows;
+  if (row < 0 || !in_range) row = 0;
+  const uint4* r = vectors + row * units + h;
+  const float norm = METRIC == kBqCosine ? __ldg(norms + row) : 0.f;
+  uint4 c[H];
+#pragma unroll
+  for (int j = 0; j < H; ++j) {
+    if (h + G * j < units) c[j] = __ldg(r + G * j);
+  }
+  int pc = 0;
+#pragma unroll
+  for (int j = 0; j < H; ++j) {
+    if (h + G * j < units) pc += popc_xor(a[j], c[j]);
+  }
+  for (int base = G * H; base < units; base += G * H) {  // rows wider than G * H units
+#pragma unroll
+    for (int j = 0; j < H; ++j) {
+      if (base + h + G * j < units) pc += popc_xor(__ldg(qq + base + G * j), __ldg(r + base + G * j));
+    }
+  }
+  pc += __shfl_xor_sync(0xffffffffu, pc, 1);
+  if (live && h == 0) {
+    out[pair] = in_range ? packed_distance<METRIC>(pc, units * 4, q_norm * norm) : __int_as_float(0x7fc00000);  // NaN
+  }
+}
+
+// The group design: packed rows of other widths or bases, kPackedGroup
+// threads per (b, k), lane by lane. Every thread of a warp stays to the end
+// (no early return) so that the shuffles see full groups.
+template <int METRIC>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 gather_popcount_kernel(const uint32_t* __restrict__ vectors,
                        const float* __restrict__ norms,
@@ -494,39 +596,14 @@ gather_popcount_kernel(const uint32_t* __restrict__ vectors,
 
   int pc = 0;
   if (live && in_range) {
-    if (VEC) {
-      const uint4* r4 = reinterpret_cast<const uint4*>(r);
-      const uint4* q4 = reinterpret_cast<const uint4*>(qq);
-      for (int i = t; i < lanes / 4; i += kPackedGroup) {
-        const uint4 a = __ldg(q4 + i);
-        const uint4 c = __ldg(r4 + i);
-        pc += __popc(a.x ^ c.x) + __popc(a.y ^ c.y) + __popc(a.z ^ c.z) + __popc(a.w ^ c.w);
-      }
-    } else {
-      for (int i = t; i < lanes; i += kPackedGroup) pc += __popc(__ldg(qq + i) ^ __ldg(r + i));
-    }
+    for (int i = t; i < lanes; i += kPackedGroup) pc += __popc(__ldg(qq + i) ^ __ldg(r + i));
   }
 #pragma unroll
   for (int off = kPackedGroup / 2; off > 0; off >>= 1) pc += __shfl_xor_sync(0xffffffffu, pc, off);
 
   if (live && t == 0) {
-    const float pcf = static_cast<float>(pc);
-    const float d_pad = static_cast<float>(lanes) * 32.f;
-    float res;
-    if (!in_range) {
-      res = __int_as_float(0x7fc00000);  // NaN
-    } else if (METRIC == kHamming) {
-      res = pcf / d_pad;
-    } else if (METRIC == kBqEuclidean) {
-      res = 4.f * pcf;
-    } else if (METRIC == kBqManhattan) {
-      res = 2.f * pcf;
-    } else {
-      const float prod = qn[b] * norms[row];
-      const float cosv = (d_pad - 2.f * pcf) / (prod != 0.f ? prod : 1.f);
-      res = prod != 0.f ? (1.f - cosv) * 0.5f : 0.f;
-    }
-    out[pair] = res;
+    out[pair] = in_range ? packed_distance<METRIC>(pc, lanes, METRIC == kBqCosine ? qn[b] * norms[row] : 0.f)
+                         : __int_as_float(0x7fc00000);  // NaN
   }
 }
 
@@ -646,29 +723,46 @@ cudaError_t launch_rows(const Args& a, int metric) {
 }
 
 template <int METRIC>
-cudaError_t launch_packed(const Args& a) {
+cudaError_t launch_group(const Args& a) {
   const int64_t blocks = (a.n_pairs + kPackedPairsPerBlock - 1) / kPackedPairsPerBlock;
-  const dim3 grid(static_cast<unsigned>(blocks));
-  const dim3 block(kWarpsPerBlock * 32);
-  const uint32_t* v = static_cast<const uint32_t*>(a.vectors);
-  const uint32_t* q = static_cast<const uint32_t*>(a.q);
-  if (a.vec) {
-    gather_popcount_kernel<METRIC, true><<<grid, block, 0, a.stream>>>(
-        v, a.norms, q, a.qn, a.idx, a.out, a.n_rows, a.dim, a.n_pairs, a.k);
-  } else {
-    gather_popcount_kernel<METRIC, false><<<grid, block, 0, a.stream>>>(
-        v, a.norms, q, a.qn, a.idx, a.out, a.n_rows, a.dim, a.n_pairs, a.k);
-  }
+  gather_popcount_kernel<METRIC><<<static_cast<unsigned>(blocks), kWarpsPerBlock * 32, 0, a.stream>>>(
+      static_cast<const uint32_t*>(a.vectors), a.norms, static_cast<const uint32_t*>(a.q), a.qn, a.idx, a.out,
+      a.n_rows, a.dim, a.n_pairs, a.k);
   return cudaSuccess;
 }
 
+// The pair design needs whole 16-byte units from aligned bases (vec). A
+// block has kPairBlock threads, halved (down to one warp) while the launch
+// would have fewer than kSms blocks: the search hop [256, 32] and the
+// descent's [128, 32] then spread over every SM.
+template <int METRIC>
+cudaError_t launch_pair(const Args& a) {
+  if (!a.vec || a.dim % 4 != 0) return cudaErrorInvalidValue;
+  int threads = kPairBlock;
+  while (threads > 32 && (a.n_pairs + threads / kPairThreads - 1) / (threads / kPairThreads) < kSms) threads >>= 1;
+  const int64_t blocks = (a.n_pairs + threads / kPairThreads - 1) / (threads / kPairThreads);
+  if (blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
+  gather_popcount_pair_kernel<METRIC><<<static_cast<unsigned>(blocks), threads, 0, a.stream>>>(
+      static_cast<const uint4*>(a.vectors), a.norms, static_cast<const uint4*>(a.q), a.qn, a.idx, a.out, a.n_rows,
+      a.dim / 4, a.n_pairs, a.k);
+  return cudaSuccess;
+}
+
+template <int METRIC>
+cudaError_t launch_packed_design(const Args& a) {
+  switch (a.design) {
+    case kDesignGroup: return launch_group<METRIC>(a);
+    case kDesignPair: return launch_pair<METRIC>(a);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 cudaError_t launch_packed_rows(const Args& a, int metric) {
-  if (a.design != kDesignPacked) return cudaErrorInvalidValue;
   switch (metric) {
-    case kHamming: return launch_packed<kHamming>(a);
-    case kBqCosine: return launch_packed<kBqCosine>(a);
-    case kBqEuclidean: return launch_packed<kBqEuclidean>(a);
-    case kBqManhattan: return launch_packed<kBqManhattan>(a);
+    case kHamming: return launch_packed_design<kHamming>(a);
+    case kBqCosine: return launch_packed_design<kBqCosine>(a);
+    case kBqEuclidean: return launch_packed_design<kBqEuclidean>(a);
+    case kBqManhattan: return launch_packed_design<kBqManhattan>(a);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -682,10 +776,11 @@ cudaError_t launch_packed_rows(const Args& a, int metric) {
 // packed). vec != 0 requires a row to be a whole number of 16-byte loads
 // and vectors and q to be 16-byte aligned. scale_rows != 0 multiplies
 // each row by norms[row] (the int8 tier of euclidean / manhattan).
-// design: 0 warp, 1 staged (row types 0-2; staged needs vec), 2 packed
-// (row type 3). Returns cudaGetLastError() after the launch, or the error
-// that kept it from launching (cudaErrorInvalidValue for a row type,
-// metric or design it does not take).
+// design: 0 warp, 1 staged (row types 0-2; staged needs vec), 2 group,
+// 3 pair (row type 3; pair needs vec). Returns cudaGetLastError() after
+// the launch, or the error that kept it from launching
+// (cudaErrorInvalidValue for a row type, metric or design it does not
+// take).
 extern "C" int gather_distances(const void* vectors, const float* norms, const void* q,
                                 const float* qn, const int32_t* idx, float* out,
                                 long long n_rows, int dim, int batch, int k, int metric,

@@ -16,8 +16,9 @@ take the plain twin, CUDA tensors launch the kernel or raise. There is no
 fallback from one to the other, nor from one kernel design to the other:
 ``design_of`` picks the design of each launch by a fixed rule ("staged"
 for f32, bf16 and int8 rows that are whole 16-byte units from aligned
-bases, "warp" for the other f32, bf16 and int8 launches, "packed" for
-packed rows), and a launch the card refuses raises.
+bases, "warp" for the other f32, bf16 and int8 launches; "pair" for
+packed rows that are whole 16-byte units from aligned bases, "group" for
+the other packed launches), and a launch the card refuses raises.
 
 The kernel is built at first use with ``nvcc`` for ``sm_90a`` into
 ``hannoy_tpu_torch/_build/``, keyed by a hash of the source, and loaded
@@ -54,7 +55,7 @@ METRIC_IDS = {
 ROW_TYPES = {torch.float32: ("f32", 0), torch.bfloat16: ("bf16", 1), torch.int8: ("int8", 2)}
 PACKED_ROWS = ("packed", 3)
 #: the kernel's designs and their ids in the C entry
-DESIGN_IDS = {"warp": 0, "staged": 1, "packed": 2}
+DESIGN_IDS = {"warp": 0, "staged": 1, "group": 2, "pair": 3}
 #: candidates per block of the staged design (``kTile`` in the source)
 TILE = 32
 #: dynamic shared memory a staged block may take: the H100's 227 KB a
@@ -143,12 +144,14 @@ def form_of(metric: distances.Metric, row_dtype: torch.dtype) -> tuple[str, str]
 def design_of(row_dtype: torch.dtype, metric: distances.Metric, dim: int, aligned: bool) -> str:
     """The kernel design of a launch on rows of ``row_dtype`` and width
     ``dim`` under ``metric``; ``aligned``: the rows and the query start at
-    16-byte aligned addresses. "packed" for the packed metrics; "staged"
-    for f32, bf16 and int8 rows that are whole 16-byte units from aligned
-    bases and whose tile (``TILE`` rows and the f32 query) fits
-    ``STAGED_SMEM``; "warp" for every other launch."""
+    16-byte aligned addresses. Packed rows (``dim`` 32-bit lanes): "pair"
+    where they are whole 16-byte units (``dim % 4 == 0``) from aligned
+    bases, "group" for the others. f32, bf16 and int8 rows: "staged" where
+    they are whole 16-byte units from aligned bases and their tile
+    (``TILE`` rows and the f32 query) fits ``STAGED_SMEM``; "warp" for the
+    others."""
     if metric.is_packed:
-        return "packed"
+        return "pair" if aligned and dim % 4 == 0 else "group"
     row_bytes = dim * row_dtype.itemsize
     staged = aligned and row_bytes % 16 == 0 and TILE * row_bytes + 4 * dim <= STAGED_SMEM
     return "staged" if staged else "warp"

@@ -149,22 +149,18 @@ def test_staged_design_tiles(cuda, name, tier, k):
 
 
 @pytest.mark.parametrize("k", [24, 33, 49, 64])
-@pytest.mark.parametrize("tier", ["raw", "bf16", "int8", "packed"])
+@pytest.mark.parametrize("tier", ["raw", "bf16", "int8", "packed", "packed-bq-cosine"])
 def test_option_widths_match_twin(cuda, tier, k):
     """The build options' hop widths: [W, traverse] (24), [W, 1 + M0 + 16]
     chain seeds at M0 = 32 with slack 16 (49), [W, E·M0] at E = 2 (64), and
     a one-candidate tail tile (33). Each row ends in a run of -1 (the
     rows of inactive expansions, a truncated row's padding) of its own
-    length, one row is all -1, and one index lies past the store."""
-    name = "hamming" if tier == "packed" else "cosine"
-    if tier == "packed":
-        from hannoy_tpu_torch.ops import codecs
-
-        rng = np.random.default_rng(41)
-        metric = distances.HAMMING
-        lanes = codecs.pack(rng.standard_normal((3000, 768)).astype(np.float32), metric.codec)
-        rows = torch.from_numpy(distances.as_lanes(lanes)).to(cuda)
-        norms = torch.from_numpy(distances.np_norms(metric, lanes)).to(cuda)
+    length, one row is all -1, and one index lies past the store. Packed
+    rows (hamming, and BQ cosine) take the pair design."""
+    name = "cosine"
+    if tier.startswith("packed"):
+        metric = distances.BQ_COSINE if tier == "packed-bq-cosine" else distances.HAMMING
+        rows, norms, rng = _packed_store(metric, 3000, 768, 41)
         q, qn = rows[:53].contiguous(), norms[:53].contiguous()
     else:
         metric, rows, norms, rng = _tier_store(cuda, name, tier, seed=41)
@@ -176,13 +172,9 @@ def test_option_widths_match_twin(cuda, tier, k):
     idx[7] = -1
     idx[11, 0] = rows.shape[0]
     idx = torch.from_numpy(idx).to(cuda)
-    if tier == "packed":
-        got = beam_cuda.gathered_distances(metric, rows, norms, q, qn, idx)
-        torch.cuda.synchronize()
-        want = beam_cuda.gathered_distances_plain(metric, rows, norms, q, qn, idx)
-        assert torch.equal(torch.isnan(got), torch.isnan(want)) and bool(torch.isnan(got[11, 0]))
-        keep = ~torch.isnan(want)
-        assert torch.equal(got[keep], want[keep])
+    if tier.startswith("packed"):
+        got = _check_packed(metric, rows, norms, q, qn, idx, "pair")
+        assert int(torch.isnan(got).sum()) == 1 and bool(torch.isnan(got[11, 0]))
     else:
         got = _check_against_twin(metric, rows, norms, q, qn, idx, "staged")
         assert int(torch.isnan(got).sum()) == 1 and bool(torch.isnan(got[11, 0]))
@@ -259,31 +251,97 @@ def test_staged_design_one_row_store(cuda, name, tier):
     assert int(torch.isnan(got).sum()) == 1
 
 
-@pytest.mark.parametrize("dim", [768, 200, 37])
-@pytest.mark.parametrize("metric", [m for m in distances.ALL_METRICS if m.is_packed], ids=lambda m: m.name)
-def test_packed_kernel_forms_match_twin(cuda, metric, dim):
-    """Packed lanes: popcounts are integers, so hamming, BQ euclidean and
-    BQ manhattan are bit-equal; the BQ cosine epilogue to one f32 ulp."""
+def _packed_store(metric, n, dim, seed):
+    """A random [n, dim]-bit store under a packed metric: int32 lanes on the
+    card and their norms, and a numpy generator for the rest of the case."""
     from hannoy_tpu_torch.ops import codecs
 
-    rng = np.random.default_rng(22)
-    lanes = codecs.pack(rng.standard_normal((3000, dim)).astype(np.float32), metric.codec)
-    nrm = distances.np_norms(metric, lanes)
-    x, xn = torch.from_numpy(distances.as_lanes(lanes)).to(cuda), torch.from_numpy(nrm).to(cuda)
-    idx = torch.from_numpy(rng.integers(-1, 3000, (67, 29)).astype(np.int32)).to(cuda)
-    idx[5, 7] = 3000  # out of range: NaN
-    q, qn = x[100:167].contiguous(), xn[100:167].contiguous()
-    got = beam_cuda.gathered_distances(metric, x, xn, q, qn, idx)
+    rng = np.random.default_rng(seed)
+    lanes = codecs.pack(rng.standard_normal((n, dim)).astype(np.float32), metric.codec)
+    rows = torch.from_numpy(distances.as_lanes(lanes)).to("cuda")
+    return rows, torch.from_numpy(distances.np_norms(metric, lanes)).to("cuda"), rng
+
+
+def _check_packed(metric, rows, norms, q, qn, idx, design):
+    """One packed launch: it goes through ``design`` and equals the twin,
+    NaN where the twin has NaN (BQ cosine to one f32 ulp)."""
+    before = beam_cuda.KERNEL.by_design.get(("packed", design), 0)
+    got = beam_cuda.gathered_distances(metric, rows, norms, q, qn, idx)
     torch.cuda.synchronize()
-    assert torch.isnan(got[5, 7]) and int(torch.isnan(got).sum()) == 1
-    idx[5, 7] = 0
-    got = beam_cuda.gathered_distances(metric, x, xn, q, qn, idx)
-    want = beam_cuda.gathered_distances_plain(metric, x, xn, q, qn, idx)
+    assert beam_cuda.KERNEL.by_design[("packed", design)] == before + 1
+    want = beam_cuda.gathered_distances_plain(metric, rows, norms, q, qn, idx)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    keep = ~torch.isnan(want)
     if metric.name == "binary quantized cosine":
-        torch.testing.assert_close(got, want, rtol=0, atol=1.2e-7)
+        torch.testing.assert_close(got[keep], want[keep], rtol=0, atol=1.2e-7)
     else:
-        assert torch.equal(got, want)
-    assert beam_cuda.KERNEL.by_form[("packed", "popcount")] >= 2
+        assert torch.equal(got[keep], want[keep])
+    return got
+
+
+@pytest.mark.parametrize("k", [1, 8, 24, 32, 33, 64])
+@pytest.mark.parametrize("b", [1, 3, 128, 4096])
+@pytest.mark.parametrize("dim", [768, 128, 1024, 160, 37])
+@pytest.mark.parametrize("metric", [m for m in distances.ALL_METRICS if m.is_packed], ids=lambda m: m.name)
+def test_packed_kernel_forms_match_twin(cuda, metric, dim, b, k):
+    """Packed lanes: popcounts are integers, so hamming, BQ euclidean and
+    BQ manhattan are bit-equal; the BQ cosine epilogue to one f32 ulp.
+    768, 128 and 1024 bits (24, 4 and 32 lanes: whole 16-byte units) take
+    the pair design, 160 and 37 bits (6 and 2 lanes) the group design. The
+    queries are rows of the store, each row ends in a run of -1 of its own
+    length, one index lies past the store (NaN), and under BQ cosine every
+    17th row and the first query have norm 0 (distance 0)."""
+    rows, norms, rng = _packed_store(metric, 3000, dim, 22)
+    if metric.name == "binary quantized cosine":
+        norms[::17] = 0
+    pick = torch.from_numpy(rng.integers(0, 3000, b)).to(cuda)
+    q, qn = rows[pick].contiguous(), norms[pick].contiguous()
+    qn[0] = 0
+    idx = rng.integers(0, 3000, (b, k)).astype(np.int32)
+    tails = rng.integers(0, k, b)
+    idx[np.arange(k)[None, :] >= (k - tails)[:, None]] = -1
+    idx[:, 0] = pick.cpu().numpy()  # each query against its own row
+    idx[b // 2, k // 2] = 3000
+    idx = torch.from_numpy(idx).to(cuda)
+    design = "pair" if rows.shape[1] % 4 == 0 else "group"
+    assert beam_cuda.design_of(rows.dtype, metric, rows.shape[1], True) == design
+    got = _check_packed(metric, rows, norms, q, qn, idx, design)
+    assert bool(torch.isnan(got[b // 2, k // 2])) and int(torch.isnan(got).sum()) == 1
+    own = got[:, 0][idx[:, 0] < 3000]
+    if metric.name == "binary quantized cosine":
+        zero = (qn == 0) | (norms[idx[:, 0].clamp(max=2999).long()] == 0)
+        assert bool((own[zero[idx[:, 0] < 3000]] == 0).all())
+    else:
+        assert bool((own == 0).all())  # a row against its own copy
+
+
+@pytest.mark.parametrize("dim", [768, 37])
+@pytest.mark.parametrize("metric", [m for m in distances.ALL_METRICS if m.is_packed], ids=lambda m: m.name)
+def test_packed_one_row_store(cuda, metric, dim):
+    """A store of one row: every index reads it (-1 too), 1 is past it."""
+    rows, norms, rng = _packed_store(metric, 1, dim, 23)
+    q, qn = rows.expand(5, -1).contiguous(), norms.expand(5).contiguous()
+    idx = torch.from_numpy(rng.integers(-1, 1, (5, 9)).astype(np.int32)).to(cuda)
+    idx[4, 8] = 1
+    got = _check_packed(metric, rows, norms, q, qn, idx, "pair" if dim == 768 else "group")
+    assert int(torch.isnan(got).sum()) == 1
+
+
+@pytest.mark.parametrize("metric", [m for m in distances.ALL_METRICS if m.is_packed], ids=lambda m: m.name)
+def test_packed_group_design_serves_narrow_and_unaligned_rows(cuda, metric):
+    """A 2-lane store (64 bits), and 768-bit rows in a view that starts one
+    lane into its storage (4-byte aligned, not 16), take the group design."""
+    rows, norms, rng = _packed_store(metric, 2000, 64, 24)
+    idx = torch.from_numpy(rng.integers(-1, 2000, (37, 32)).astype(np.int32)).to(cuda)
+    _check_packed(metric, rows, norms, rows[:37].contiguous(), norms[:37].contiguous(), idx, "group")
+    wide, norms, _ = _packed_store(metric, 2000, 768, 25)
+    flat = torch.empty(2000 * 24 + 1, dtype=torch.int32, device=cuda)
+    view = flat[1:].view(2000, 24)
+    view.copy_(wide)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    q = view[:37].contiguous()
+    assert beam_cuda.design_of(view.dtype, metric, 24, False) == "group"
+    _check_packed(metric, view, norms, q, norms[:37].contiguous(), idx, "group")
 
 
 @pytest.mark.parametrize("metric, tier", [(Metric.BQ_COSINE, "raw"), (Metric.HAMMING, "raw"), (Metric.COSINE, "int8"), (Metric.EUCLIDEAN, "bf16")],

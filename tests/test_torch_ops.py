@@ -284,10 +284,26 @@ def test_design_of_each_dense_launch(dtype, name, dim, aligned):
     assert beam_cuda.design_of(dtype, distances.by_name(name), dim, aligned) == want
 
 
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("lanes", [1, 2, 3, 4, 24, 25, 32])
+def test_design_of_each_packed_launch(lanes, aligned):
+    """Packed rows of whole 16-byte units (lanes % 4 == 0) from aligned
+    bases take the pair design; other widths and unaligned bases the group
+    design, whatever the packed metric."""
+    want = "pair" if lanes % 4 == 0 and aligned else "group"
+    for metric in distances.ALL_METRICS:
+        if metric.is_packed:
+            assert beam_cuda.design_of(torch.int32, metric, lanes, aligned) == want
+
+
 def test_design_of_packed_rows_and_the_shared_memory_limit():
     for metric in distances.ALL_METRICS:
         if metric.is_packed:
-            assert beam_cuda.design_of(torch.int32, metric, 24, True) == "packed"
+            # 768-bit rows, the main path's: six 16-byte units
+            assert beam_cuda.design_of(torch.int32, metric, 24, True) == "pair"
+            for lanes in (1, 2, 3):
+                assert beam_cuda.design_of(torch.int32, metric, lanes, True) == "group"
+            assert beam_cuda.design_of(torch.int32, metric, 24, False) == "group"
     # a staged tile holds TILE rows and the f32 query: past the limit the warp design serves
     for dtype in (torch.float32, torch.bfloat16, torch.int8):
         widest = beam_cuda.STAGED_SMEM // (beam_cuda.TILE * dtype.itemsize + 4) // 16 * 16
