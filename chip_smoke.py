@@ -22,8 +22,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    tiers' cosine at [512, 64] too; packed rows also at the BQ wave hop of
    narrower waves [1024, 32] and the descent's [128, 32], and on a second
    store of 1,000,000 rows, 96 MB, past the L2 cache, at [4096, 32] and
-   [256, 32] for hamming and BQ cosine) (tiers: 1e-5 relative,
-   summation order only; packed: bit-equal, BQ cosine 1.2e-7 absolute).
+   [256, 32] for hamming and BQ cosine; f32 cosine rows also on a store of
+   1,000,000 rows, 3.07 GB, past 2**31 bytes, at the search hop [256, 32]
+   and at the other shapes phase 12 launches) (f32 cosine: 1e-5 absolute;
+   tiers: 1e-5 relative, summation order only; packed: bit-equal, BQ
+   cosine 1.2e-7 absolute).
    For each packed store and metric the launch floor — one pair a launch,
    [1, 1], timed the same way — is printed on a line of its own and beside
    each packed case.
@@ -121,11 +124,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``BuildCancelled``, and after the abort the answers are those of before;
 11. the build options on phase 4/5's data, each between two default
    builds of its path: the wave path (``bulk=False``, wave 4096, the first
-   ``N_OPTION_WAVE`` = 50,000 items) with
-   ``beam_expand=2``, ``traverse=24``, ``link_slack=16`` and
-   ``chain_seeding`` (at least one chained wave); the bulk path with
-   ``bulk_renumber`` (the 256 answers equal the default build's
-   by item id and distance, and both graphs searched in turns for QPS),
+   ``N_OPTION_WAVE`` = 25,000 items) with ``beam_expand=2``,
+   ``traverse=24``, ``link_slack=16`` and ``chain_seeding`` (at least one
+   chained wave); the bulk path (the first ``N_OPTION_BULK`` = 50,000
+   items) with ``bulk_renumber`` (the 256 answers equal the default
+   build's by item id and distance, and both graphs searched in turns for
+   QPS),
    ``bulk_backbone=False, bulk_upper=1`` (recall printed only),
    ``backbone_flat=False`` and ``bulk_init="random"``: each build timed
    with its waves, chained waves, beam iterations and kernel launches,
@@ -133,7 +137,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    then phase 10's database, reopened: +2,000 / -400 (every shard's entry
    points among them) by the lockstep build with ``link_slack=8``
    (``prune_slack_rows`` and the stranding re-check per shard) →
-   validity, no deleted id, recall, self-hit >= 0.99.
+   validity, no deleted id, recall, self-hit >= 0.99;
+12. the main path at the size its users run: 1,000,000 x 768 cosine
+   (``bench_data``, seed 42, n/256 centres; m 16, ef_construction 96, as
+   ``bench.py`` sets it above 200k items) through ``Database`` (native
+   store, ``map_size`` 8 GiB) / ``Writer`` / ``Reader`` in a temporary
+   directory: ``add_items`` → ``build()`` (the bulk path with the flat
+   backbone: its k-means clusters, backbone waves and peak device memory
+   above the start) → commit → ``by_vecs`` of the 256 queries at ef 50,
+   100 and 200 (QPS, the median of single calls; tie-aware recall@10
+   against ``flat_topk`` over every item, >= 0.93 at ef 100) → close →
+   reopen → ``Reader.open`` (load and upload apart; device bytes per item)
+   → the same answers, ``assert_validity`` → append 2,000 → ``build()``
+   (``load_graph``, ``fill_link_dists``, waves) → commit → self-hit >= 0.99
+   and ``assert_validity`` on all 1,002,000 items. The widths of the
+   search's pooled layer-1 descent and of the append's level-0 insertion
+   seeds are read from the port's spans (``reader_search``,
+   ``insert_seeds``) and must be 32. Every span is fenced and carries its
+   kernel launches, and every launch must take the staged design.
 
 The build seconds of phases 4 and 5 are the wall time of an unfenced
 ``build_graph``, ended by one ``torch.cuda.synchronize()``. The kernel's
@@ -146,10 +167,10 @@ kernel, and ``{"ok": true, "device": {...}}``; the line before them
 kernel line has one
 entry for each form of the kernel — row type (f32, bf16, int8, packed) ×
 family (dot: cosine; difference: euclidean, manhattan; popcount: the
-packed metrics) — with the launches that phases 5-11 made in that form,
+packed metrics) — with the launches that phases 5-12 made in that form,
 each step counted from 0, the kernel design that served them, and as its
 headline the phase-3 case of the shape those phases launch most. The run
-fails if a form was never launched, or if a launch of phases 5-11 (all at
+fails if a form was never launched, or if a launch of phases 5-12 (all at
 768-wide rows, whole 16-byte units) did not take the design for such rows:
 the staged design for f32, bf16 and int8, the pair design for packed rows. Phase 3
 also gives each case's per-pair floor (each pair's row read once) beside
@@ -234,13 +255,18 @@ N_SHARDED, N_SHARDS, SHARDED_DELETE = 100_000, 4, 400
 SHARDED_MAP_SIZE = 8 * 2**30
 #: phase 11: the build options, each built between two default builds of
 #: its path in the same call — the wave path (``bulk=False``, wave 4096) on
-#: the first N_OPTION_WAVE items (cut from 100k: phase 11 took ≈ 120 s
-#: there against a budget of 75), the bulk path on all N; the recall of
+#: the first N_OPTION_WAVE items, the bulk path on the first N_OPTION_BULK
+#: (both cut from 100k, the wave path first, where phase 11 took ≈ 120 s
+#: against a budget of 75, then both again once phase 12 took 200-250 s of
+#: a run that has to stay near half of its 1,200 s limit; 25k still chains
+#: waves, 50k still takes the k-means candidates, > 16,384, and the pooled
+#: 8-wide descent); the recall of
 #: ``bulk_upper=1`` is printed, not barred (the JAX package expects a
 #: bulk-built layer 1 to lose recall); QPS_TURNS searches of each of the
 #: plain and the renumbered bulk graph, in turns; the sharded churn of
 #: phase 10's layout with SHARDED_SLACK slack columns
-N_OPTION_WAVE = 50_000
+N_OPTION_WAVE = 25_000
+N_OPTION_BULK = 50_000
 WAVE_OPTIONS = (("default", {}), ("beam_expand=2", {"beam_expand": 2}), ("traverse=24", {"traverse": 24}),
                 ("link_slack=16", {"link_slack": 16}), ("chain_seeding", {"chain_seeding": True}),
                 ("default again", {}))
@@ -251,6 +277,27 @@ BULK_OPTIONS = (("default", {}), ("bulk_renumber", {"bulk_renumber": True}),
 UNBARRED = ("bulk_backbone=False,bulk_upper=1",)
 QPS_TURNS = 3
 SHARDED_SLACK = 8
+#: phase 12: the main path at the size its users run — the upstream
+#: benchmarks' 1M rows (BASELINE.md), bench.py's data at 1,000,000 items
+#: and its ef_construction above 200k items — searched at SCALE_EF (QPS
+#: the median of SCALE_QPS_CALLS single calls); the store's size limit
+#: (the 1 GiB default holds about 350k items of 768 f32); the width that
+#: default_ef_upper gives at >= 500,000 items, which the port's spans must
+#: record for the search's pooled descent and the append's level-0 seeds
+N_SCALE = 1_000_000
+EFC_SCALE = 96
+SCALE_EF = (50, 100, 200)
+SCALE_QPS_CALLS = 5
+SCALE_MAP_SIZE = 8 * 2**30
+SCALE_EF_UPPER = 32
+#: phase 3: f32 cosine on a random store of N_SCALE rows (3.07 GB, past
+#: 2**31 bytes) at the shapes phase 12 launches: the search's hops (layer
+#: 1 [256, 16], layer 0 [256, 32]) and entry points [256, 1]; the append's
+#: waves [128, ·] and its self-hit search [2000, ·]; fill_link_dists
+#: [4096, 32 / 16]; the bulk build's random candidates [8192, 8] and
+#: their last chunk [576, 8]
+SCALE_STORE_SHAPES = ((256, 32), (256, 16), (256, 1), (128, 32), (128, 16), (128, 1), (2000, 32), (2000, 16),
+                      (2000, 1), (4096, 32), (4096, 16), (8192, 8), (576, 8))
 #: index sets the timed launches rotate through (keeps rows out of L2)
 INDEX_SETS = 8
 TIMED_PAIRS = 5
@@ -509,7 +556,26 @@ def check_kernel(device) -> tuple[list[dict], list[dict]]:
                                          "ulp" if name == "binary quantized cosine" else "exact", lanes * 4, lanes * 4,
                                          lanes * 3, floor_ms=floor_ms))
         del packed, norms
-    return cases, floors
+    return cases + scale_store_cases(gen, device), floors
+
+
+def scale_store_cases(gen, device) -> list[dict]:
+    """Phase 3's f32 cosine cases on a random store of phase 12's size,
+    ``N_SCALE`` rows (3.07 GB, so that row offsets pass 2**31 bytes), at
+    ``SCALE_STORE_SHAPES``."""
+    import torch
+
+    from hannoy_tpu_torch.ops import distances
+
+    store = torch.randn((N_SCALE, DIM), generator=gen, device=device)
+    norms = store.norm(dim=1)
+
+    def query(b):
+        q = torch.randn((b, DIM), generator=gen, device=device)
+        return q, q.norm(dim=1)
+
+    return [kernel_case(distances.COSINE, "f32", store, norms, _index_sets(gen, device, query, b, k, n=N_SCALE), "abs",
+                        DIM * 4, DIM * 4, DIM * 2) for b, k in SCALE_STORE_SHAPES]
 
 
 def bench_data(rng: np.random.Generator, n: int = 0) -> tuple[np.ndarray, np.ndarray]:
@@ -520,7 +586,12 @@ def bench_data(rng: np.random.Generator, n: int = 0) -> tuple[np.ndarray, np.nda
     n_clusters = max(32, n // 256)
     centers = rng.standard_normal((n_clusters, DIM)).astype(np.float32) * 4.0
     assign = rng.integers(0, n_clusters, size=n)
-    data = (centers[assign] + rng.standard_normal((n, DIM))).astype(np.float32)
+    # in chunks of rows: the same draws in the same order, and the same
+    # sums, as one (n, DIM) draw, without its float64 temporaries
+    data = np.empty((n, DIM), dtype=np.float32)
+    for p0 in range(0, n, 65536):
+        a = assign[p0 : p0 + 65536]
+        data[p0 : p0 + 65536] = centers[a] + rng.standard_normal((len(a), DIM))
     q_assign = rng.integers(0, n_clusters, size=N_QUERIES)
     queries = (centers[q_assign] + rng.standard_normal((N_QUERIES, DIM))).astype(np.float32)
     return data, queries
@@ -591,35 +662,39 @@ def fenced_spans(device, data, label: str, **opts) -> dict:
     return {"build_s": wall, "spans": {k: {"count": c, "ms": ms} for k, (c, ms) in table.items()}}
 
 
-def profiled_build(device, data, label: str, **opts) -> dict:
-    """The same build once more, unfenced, under ``torch.profiler`` → its
-    wall seconds, the device's busy time (the sum of the device events:
-    one stream, so they do not overlap) and idle share, and the kernels
-    with the most device time. The profiler's own host cost is in the
-    wall time, so the idle share is an upper bound."""
+def profiled(fn, label: str, what: str) -> dict:
+    """``fn`` (which returns its wall seconds, ended by a synchronize) under
+    ``torch.profiler`` → its wall seconds, the device's busy time (the sum
+    of the device events: one stream, so they do not overlap) and idle
+    share, and the kernels with the most device time. Only the device's
+    activity is recorded (the host's operators would cost the profiler
+    most of its time to parse); its own host cost is in the wall time all
+    the same, so the idle share is an upper bound."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, _, wall, _ = timed_build(device, data, **opts)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        wall = fn()
     by_name: dict[str, float] = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     busy = sum(by_name.values())
-    out = {"build_s": wall, "device_ms": busy, "idle_share": 1.0 - busy / (wall * 1e3) if busy else None,
+    out = {"wall_s": wall, "device_ms": busy, "idle_share": 1.0 - busy / (wall * 1e3) if busy else None,
            "top": sorted(by_name.items(), key=lambda kv: -kv[1])[:8]}
     idle = f"{out['idle_share']:.4f}" if busy else "not measured (the profiler saw no device events)"
-    print(f"[{label}] profiled build: {wall:.3f} s wall, device busy {busy:.2f} ms, idle share {idle}", flush=True)
+    print(f"[{label}] profiled {what}: {wall:.3f} s wall, device busy {busy:.2f} ms, idle share {idle}", flush=True)
     for kname, ms in out["top"]:
         print(f"[{label}]   device {ms:.2f} ms: {kname[:110]}", flush=True)
     return out
 
 
-#: launches of the main path (phases 5-11) per form "row/family" → {"launches", "by_shape"}
+#: launches of the main path (phases 5-12) per form "row/family" → {"launches", "by_shape"}
 MAIN_PATH: dict[str, dict] = {}
 #: launches of the main path per (row type, kernel design)
 MAIN_DESIGNS: dict[tuple[str, str], int] = {}
+#: launches of phase 12 (f32 cosine rows, a store of N_SCALE items) per "BxK"
+SCALE_LAUNCHES: dict[str, int] = {}
 
 
 def count_main_path(step: str) -> dict:
@@ -1708,7 +1783,8 @@ def options_path(device, sharded_dir: str, sharded: dict, card: str) -> dict:
     42). (a) The wave path on the first ``N_OPTION_WAVE`` items: the
     default build, then ``beam_expand=2``, ``traverse=24``,
     ``link_slack=16`` and ``chain_seeding`` (which must chain waves), then
-    the default again. (b) The bulk path on all N: the default build, then
+    the default again. (b) The bulk path on the first ``N_OPTION_BULK``
+    items: the default build, then
     ``bulk_renumber`` (the answers equal the default's by item id and
     distance; QPS of the two graphs in turns), ``bulk_backbone=False,
     bulk_upper=1``, ``backbone_flat=False`` and ``bulk_init="random"``,
@@ -1756,10 +1832,11 @@ def options_path(device, sharded_dir: str, sharded: dict, card: str) -> dict:
     torch.cuda.empty_cache()
 
     # ---- (b) the bulk path ----
-    top = _exact_top(device, data, queries)
+    bdata = data[:N_OPTION_BULK]
+    top = _exact_top(device, bdata, queries)
     graphs = {}
     for name, opts in BULK_OPTIONS:
-        rec, g, dev, res = option_build(device, data, top, label, f"bulk {name}", card, **opts)
+        rec, g, dev, res = option_build(device, bdata, top, label, f"bulk {name}", card, **opts)
         check("bulk", name, rec, {"bulk_renumber": "bulk_renumber", "bulk_init=random": "bulk_kmeans",
                                   "bulk_backbone=False,bulk_upper=1": "bulk_upper_tri"}.get(name, "bulk_build"))
         if name == "bulk_init=random" and "bulk_maxmin" in rec["spans"]:
@@ -1775,7 +1852,7 @@ def options_path(device, sharded_dir: str, sharded: dict, card: str) -> dict:
     same_ids = bool(np.array_equal(p_ids, r_ids))
     same_d = bool(torch.equal(pres.dists, rres.dists))
     q, qn, _ = top
-    efu = default_ef_upper(N, ef)
+    efu = default_ef_upper(N_OPTION_BULK, ef)
     times: dict[str, list] = {"default": [], "bulk_renumber": []}
     for name in ("default", "bulk_renumber", "bulk_renumber", "default") * ((QPS_TURNS + 1) // 2):
         if len(times[name]) < QPS_TURNS:
@@ -1861,6 +1938,174 @@ def options_path(device, sharded_dir: str, sharded: dict, card: str) -> dict:
     return out
 
 
+def scale_path(device, path: str, card: str) -> dict:
+    """Phase 12: the main path at the size its users run — ``N_SCALE`` x
+    768 cosine (``bench_data``, seed 42, n/256 centres), m 16,
+    ef_construction ``EFC_SCALE``, through Database / Writer / Reader in
+    the empty directory ``path``: (a) ``add_items``; (b) ``build()``, which
+    must take the bulk path with the flat backbone (``insert_wave``'s
+    ``flat``), with its k-means clusters, backbone waves and peak device
+    memory above the start; (c) commit; (d) ``by_vecs`` of the queries at
+    each ef of ``SCALE_EF``: QPS (the median of ``SCALE_QPS_CALLS`` single
+    calls after a first one) and tie-aware recall@10 against ``flat_topk``
+    over every item (>= RECALL_BAR at ef 100); (e) close → reopen →
+    ``Reader.open``, its load and upload apart, device bytes per item →
+    the same answers at ef 100, ``assert_validity``; (f) append
+    ``N_APPEND`` (seed 43) → ``build()`` (``load_graph``,
+    ``fill_link_dists``, waves) → commit → self-hit >= SELF_HIT_BAR and
+    ``assert_validity`` on every item. The search's pooled-descent width
+    (span ``reader_search``) and the append's level-0 seed width (span
+    ``insert_seeds``) must be ``SCALE_EF_UPPER``. Every span is fenced and
+    carries its kernel launches; every launch must take the staged design.
+    Nothing is caught."""
+    import torch
+
+    from hannoy_tpu_torch import Database, Metric
+    from hannoy_tpu_torch.ops import beam_cuda, distances
+    from hannoy_tpu_torch.utils import tracing
+
+    label = "phase 12: the main path at 1M"
+    kernel = beam_cuda.KERNEL
+    n, ef = N_SCALE, EF_SWEEP[-1]
+    out: dict = {"seconds": {}, "spans": {}, "launches": {}, "search": {}}
+
+    def recorded():
+        return tracing.record(fence=lambda: _sync(device), probe=lambda: kernel.launches)
+
+    def timed(what: str, fn):
+        return _timed(label, card, device, what, fn)
+
+    def step_done(step: str) -> None:
+        """The step's launches into the main path's counts; each one staged."""
+        off = {f"{row}/{design}": c for (row, design), c in kernel.by_design.items() if design != "staged"}
+        if off:
+            raise AssertionError(f"[{label}] {step}: launches outside the staged design: {off}")
+        for shape, c in _shapes(kernel.by_shape).items():
+            SCALE_LAUNCHES[shape] = SCALE_LAUNCHES.get(shape, 0) + c
+        out["launches"][step] = {"by_form": count_main_path(f"{label}: {step}"), "by_shape": _shapes(kernel.by_shape)}
+        print(f"[{label}] {step}: kernel launches {kernel.launches} {_shapes(kernel.by_shape)}", flush=True)
+        kernel.reset_counts()
+
+    (data, queries), out["seconds"]["data"] = timed(f"bench_data of {n} x {DIM}",
+                                                   lambda: bench_data(np.random.default_rng(42), n))
+
+    # ---- (a) add → (b) build → (c) commit ----
+    kernel.reset_counts()
+    db = Database(path, Metric.COSINE, map_size=SCALE_MAP_SIZE)
+    writer = db.writer(dimensions=DIM, m=M, ef=EFC_SCALE)
+    _, out["seconds"]["add_items"] = timed(f"add_items of {n} x {DIM}", lambda: writer.add_items(range(n), data))
+    del data
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    with recorded() as spans:
+        stats, out["seconds"]["build"] = timed("build (fenced spans)", lambda: writer.builder(seed=42).build())
+    out["build_peak_bytes"] = torch.cuda.max_memory_allocated(device) - base
+    out["spans"]["build"] = sp = _print_spans(label, spans)
+    waves = [s for s in spans if s.name == "insert_wave"]
+    if "bulk_build" not in sp or not waves or not all(s.fields["flat"] for s in waves):
+        raise AssertionError(f"[{label}] the build did not take the bulk path with the flat backbone: "
+                             f"{sorted(sp)}, backbone waves {[s.fields for s in waves]}")
+    by_level: dict[int, int] = {}
+    for s in waves:
+        by_level[s.fields["level"]] = by_level.get(s.fields["level"], 0) + 1
+    out["backbone_waves"] = {"in_all": len(waves), "by_level": by_level,
+                             "widths": sorted({s.fields["width"] for s in waves})}
+    out["kmeans_clusters"] = [s.fields["clusters"] for s in spans if s.name == "bulk_kmeans"]
+    print(f"[{label}] build: bulk path, flat backbone of {len(waves)} waves (by level {by_level}, widths "
+          f"{out['backbone_waves']['widths']}), k-means clusters {out['kmeans_clusters']}, touched {len(stats.touched)} "
+          f"rows; peak device memory {out['build_peak_bytes'] / 2**30:.3f} GiB above the start ({card})", flush=True)
+    _, out["seconds"]["commit"] = timed("commit_rw_txn", db.commit_rw_txn)
+    step_done("add, build and commit")
+
+    # ---- (d) search at each ef ----
+    reader, out["seconds"]["reader_cached"] = timed("Reader.open (graph cached by the build)", db.reader)
+    if reader.n_items() != n:
+        raise AssertionError(f"[{label}] the index has {reader.n_items()} items, expected {n}")
+    answers = {}
+    for e in SCALE_EF:
+        with tracing.record() as spans:
+            answers[e] = reader.by_vecs(queries, n=K, ef_search=e)
+        widths = sorted({s.fields["ef_upper"] for s in spans if s.name == "reader_search"})
+        t = [one_call(device, lambda e=e: reader.by_vecs(queries, n=K, ef_search=e)) for _ in range(SCALE_QPS_CALLS)]
+        rec = _tie_aware_recall(label, reader, queries, answers[e], distances.COSINE)
+        out["search"][e] = {"recall_at_10": rec, "qps": N_QUERIES / float(np.median(t)), "ef_upper": widths,
+                            "seconds": t}
+        print(f"[{label}] by_vecs ef={e}: recall@10 {rec:.4f}, {out['search'][e]['qps']:.1f} QPS (median of "
+              f"{SCALE_QPS_CALLS} calls of {N_QUERIES} queries), pooled descent {widths} wide ({card})", flush=True)
+        if widths != [SCALE_EF_UPPER]:
+            raise AssertionError(f"[{label}] the search's pooled descent was {widths} wide, not {SCALE_EF_UPPER}")
+    out["search"][ef]["profiled"] = profiled(lambda: one_call(device, lambda: reader.by_vecs(queries, n=K, ef_search=ef)),
+                                             label, f"by_vecs ef={ef}")
+    step_done("search")
+    if out["search"][ef]["recall_at_10"] < RECALL_BAR:
+        raise AssertionError(f"[{label}] recall@10 at ef={ef} {out['search'][ef]['recall_at_10']} below {RECALL_BAR}")
+
+    # ---- (e) close → reopen → the same answers, validity ----
+    db.close()
+    del reader, writer
+    torch.cuda.empty_cache()
+    db, out["seconds"]["reopen"] = timed("Database reopen (native store)",
+                                         lambda: Database(path, Metric.COSINE, map_size=SCALE_MAP_SIZE))
+    base = torch.cuda.memory_allocated(device)
+    with recorded() as spans:
+        reader, out["seconds"]["reader_open"] = timed("Reader.open (load from the store + upload)", db.reader)
+    out["spans"]["reader_open"] = sp = _print_spans(label, spans)
+    out["device_bytes_per_item"] = (torch.cuda.memory_allocated(device) - base) / n
+    out["seconds"]["reader_load"] = sp["reader_load_graph"]["ms"] / 1e3
+    out["seconds"]["reader_upload"] = sp["reader_to_device"]["ms"] / 1e3
+    print(f"[{label}] Reader.open: load {out['seconds']['reader_load']:.3f} s, upload "
+          f"{out['seconds']['reader_upload']:.3f} s; the Reader holds {out['device_bytes_per_item']:.1f} device bytes "
+          f"per item ({card})", flush=True)
+    if reader.n_items() != n or reader.by_vecs(queries, n=K, ef_search=ef) != answers[ef]:
+        raise AssertionError(f"[{label}] the reopened index ({reader.n_items()} items) answers otherwise at ef={ef}")
+    print(f"[{label}] the {N_QUERIES} answers at ef={ef} are the same before the close and after the reopen", flush=True)
+    _, out["seconds"]["assert_validity"] = timed(f"Reader.assert_validity on {n} items", reader.assert_validity)
+    step_done("reopen and search")
+    del reader
+    torch.cuda.empty_cache()
+
+    # ---- (f) append → build → commit → self-hit, validity ----
+    extra = bench_append(N_APPEND, seed=43, n_data=n)
+    writer = db.writer(dimensions=DIM, m=M, ef=EFC_SCALE)
+    _, out["seconds"]["append_add_items"] = timed(f"add_items of {N_APPEND} more",
+                                                  lambda: writer.add_items(range(n, n + N_APPEND), extra))
+    with recorded() as spans:
+        stats, out["seconds"]["append_build"] = timed("append build (fenced spans)", lambda: writer.builder(seed=42).build())
+    out["spans"]["append_build"] = sp = _print_spans(label, spans, skip=("insert_wave", "insert_seeds"))
+    for need in ("load_graph", "fill_link_dists", "insert_wave"):
+        if need not in sp:
+            raise AssertionError(f"[{label}] the append did not go through {need}: {sorted(sp)}")
+    if sp["fill_link_dists"]["launches"] == 0:
+        raise AssertionError(f"[{label}] fill_link_dists launched no kernel")
+    seeds: dict[int, set] = {}
+    for s in spans:
+        if s.name == "insert_seeds":
+            seeds.setdefault(s.fields["level"], set()).add(s.fields["ef_upper"])
+    out["append_seed_widths"] = {lv: sorted(w) for lv, w in sorted(seeds.items())}
+    print(f"[{label}] append: {stats.waves} waves, touched {len(stats.touched)} rows; insertion seeds by level "
+          f"{out['append_seed_widths']} wide; fill_link_dists launched the kernel {sp['fill_link_dists']['launches']} "
+          f"times", flush=True)
+    if seeds.get(0) != {SCALE_EF_UPPER}:
+        raise AssertionError(f"[{label}] the append's level-0 items were seeded {seeds.get(0)} wide, not {SCALE_EF_UPPER}")
+    _, out["seconds"]["append_commit"] = timed("commit_rw_txn", db.commit_rw_txn)
+    reader = db.reader()
+    if reader.n_items() != n + N_APPEND:
+        raise AssertionError(f"[{label}] the index has {reader.n_items()} items after the append")
+    firsts = reader.by_vecs(extra, n=1, ef_search=ef)
+    out["self_hit"] = float(np.mean([bool(row) and row[0][0] == n + i for i, row in enumerate(firsts)]))
+    print(f"[{label}] the {N_APPEND} appended items find themselves first in {out['self_hit']:.4f} of rows at "
+          f"ef={ef} ({card})", flush=True)
+    _, out["seconds"]["assert_validity_after_append"] = timed(f"Reader.assert_validity on {n + N_APPEND} items",
+                                                              reader.assert_validity)
+    step_done("append and self-hit")
+    del reader, writer
+    db.close()
+    if out["self_hit"] < SELF_HIT_BAR:
+        raise AssertionError(f"[{label}] self-hit {out['self_hit']} below {SELF_HIT_BAR}")
+    print(f"[{label}] seconds by step: {json.dumps({k: round(v, 3) for k, v in out['seconds'].items()})}", flush=True)
+    return out
+
+
 def _spans_of(fn) -> set:
     """Run ``fn`` → the names of the spans it opened."""
     from hannoy_tpu_torch.utils import tracing
@@ -1918,7 +2163,7 @@ def main() -> int:
         print(f"{name} took {phase_s[name]:.1f} s", flush=True)
 
     if "--kernel-only" in sys.argv[1:]:  # a short first run of new kernel code: build, check, time, stop
-        print(f"chip_smoke --kernel-only: {len(cases)} cases agree with their twins; phases 4-11 not run", flush=True)
+        print(f"chip_smoke --kernel-only: {len(cases)} cases agree with their twins; phases 4-12 not run", flush=True)
         return 0
     torch.cuda.empty_cache()
     data, queries = bench_data(np.random.default_rng(42))
@@ -1929,7 +2174,7 @@ def main() -> int:
     if "bulk_build" not in default["span_names"]:
         raise AssertionError("phase 5: the default build did not take the bulk path")
     default["fenced"] = fenced_spans(device, data, "phase 5: default build")
-    default["profiled"] = profiled_build(device, data, "phase 5: default build")
+    default["profiled"] = profiled(lambda: timed_build(device, data)[2], "phase 5: default build", "build")
     lap("phase 5")
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as api_dir:
@@ -1952,6 +2197,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         options = options_path(device, sharded_dir, sharded, card)  # phase 11
         lap("phase 11")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as scale_dir:
+        scale = scale_path(device, scale_dir, card)  # phase 12
+        lap("phase 12")
 
     # the f32 cases beside their launches on the earlier paths
     for c in cases:
@@ -1960,6 +2209,12 @@ def main() -> int:
             for path, res in (("wave_build", waves), ("default_build", default)):
                 c[f"launches_{path}"] = res["build_launches_by_shape"].get(key, 0) + res["search_launches_by_shape"].get(key, 0)
             c["launches_api_path"] = sum(step.get(key, 0) for step in api["launches_by_shape"].values())
+
+    # the shapes phase 12 launched that phase 3 timed on no store of its size
+    timed_scale = {f"{c['shape'][0]}x{c['shape'][1]}" for c in cases if c["store_rows"] == N_SCALE}
+    untimed = {shape: c for shape, c in SCALE_LAUNCHES.items() if shape not in timed_scale}
+    print(f"phase 12 launches per [B, K]: {json.dumps(SCALE_LAUNCHES)}; not timed in phase 3 on a store of "
+          f"{N_SCALE} rows: {json.dumps(untimed)}", flush=True)
 
     # every launch of the main path (all at 768-wide rows, whole 16-byte
     # units) went through the design for such rows: f32, bf16 and int8 the
@@ -1978,10 +2233,12 @@ def main() -> int:
     for form in sorted({c["form"] for c in cases}):
         main = MAIN_PATH.get(form, {"launches": 0, "by_shape": {}})
         if main["launches"] == 0:
-            raise AssertionError(f"the main path (phases 5-11) never launched the kernel's {form} form: {MAIN_PATH}")
+            raise AssertionError(f"the main path (phases 5-12) never launched the kernel's {form} form: {MAIN_PATH}")
         own = [c for c in cases if c["form"] == form]
-        for c in own:  # the main path's stores are of N items
-            c["launches_main_path"] = main["by_shape"].get(f"{c['shape'][0]}x{c['shape'][1]}", 0) if c["store_rows"] == N else 0
+        for c in own:  # the main path's stores: N items, and N_SCALE in phase 12 (f32 cosine)
+            key = f"{c['shape'][0]}x{c['shape'][1]}"
+            at_scale = SCALE_LAUNCHES.get(key, 0) if form == "f32/dot" else 0
+            c["launches_main_path"] = {N: main["by_shape"].get(key, 0) - at_scale, N_SCALE: at_scale}.get(c["store_rows"], 0)
         head = max((c for c in own if c["metric"] == driven[form.split("/")[1]]), key=lambda c: c["launches_main_path"])
         print(f"form {form}: {main['launches']} launches on the main path {json.dumps(main['by_shape'])}; headline "
               f"{head['metric']} {head['shape']}: {head['ms']:.5f} ms, bound {head['bound_ms']:.5f} ms", flush=True)
@@ -2005,7 +2262,7 @@ def main() -> int:
     # three (which stay short): every timed case and every path's record
     print("detail " + json.dumps({"cases": cases, "launch_floors": floors, "phase_seconds": phase_s, "paths": {
         "wave_build": waves, "default_build": default, "api_path": api, "packed_path": packed, "tier_path": tiers,
-        "delete_filter_path": deletes, "sharded_path": sharded, "options_path": options}}))
+        "delete_filter_path": deletes, "sharded_path": sharded, "options_path": options, "scale_path": scale}}))
     kernels = {"kernels": entries}
     print(card_line())
     print(json.dumps(kernels))

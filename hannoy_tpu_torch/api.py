@@ -1321,7 +1321,7 @@ class Reader:
             if opt._ef_upper is not None
             else _beam.default_ef_upper(self.n_items(), ef)
         )
-        with span("reader_search", queries=B, ef=ef):
+        with span("reader_search", queries=B, ef=ef, ef_upper=efu):
             if opt._candidates is not None:
                 mask = torch.from_numpy(self._candidate_mask(opt._candidates)).to(self._database._device)
                 res = _beam.hnsw_search_filtered(

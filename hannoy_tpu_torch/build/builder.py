@@ -473,7 +473,8 @@ def build_graph(
                 tab0 = np.full(FLAT_BOOTSTRAP, -1, dtype=np.int32)
                 tab0[: len(active_ids)] = active_ids[:FLAT_BOOTSTRAP]
                 flat0 = torch.from_numpy(tab0).to(device)
-            with span("insert_wave", level=lv, width=w_pad, active=n_active, chained=int(seeds is not None)):
+            with span("insert_wave", level=lv, width=w_pad, active=n_active, chained=int(seeds is not None),
+                      flat=int(bb_tab0 is not None)):
                 dev, dirty, counters = _insert_wave(
                     dev, wave_t, lv, opts, n_active, node_ok, dirty, counters, g.m0,
                     seeds=seeds, beam_iters=beam_iters, n_real=len(chunk), flat_tabs=flat_tabs, flat0=flat0,
@@ -771,9 +772,10 @@ def _insert_wave(
             # and cannot be found again. (Items of higher levels run an
             # ef_construction-wide beam at their own top layer already.)
             ef_upper = beam.default_ef_upper(n_active, opts.ef_construction) if lv == 0 else 1
-            seeds = beam.descend_for_slots(
-                dev, wave_t, dev.max_level, lv + 1, node_ok=node_ok, ef_upper=ef_upper, cancel=cancel
-            )
+            with span("insert_seeds", level=lv, ef_upper=ef_upper):
+                seeds = beam.descend_for_slots(
+                    dev, wave_t, dev.max_level, lv + 1, node_ok=node_ok, ef_upper=ef_upper, cancel=cancel
+                )
         else:
             seeds = dev.entry_slots[None, :].expand(wave_t.shape[0], -1)
     if beam_iters is None:

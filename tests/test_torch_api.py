@@ -463,6 +463,27 @@ def test_top_up_on_an_index_smaller_than_count(db):
     assert [[i for i, _ in r] for r in rows] == [[0, 1, 2], [1, 0, 2]]
 
 
+def test_reader_search_records_its_pooled_descent_width(db, monkeypatch):
+    """``reader_search`` records the width the search's layer-1 descent ran
+    at: ``default_ef_upper``'s (forced to its 32 of >= 500,000 items) or the
+    QueryBuilder's ``ef_upper``."""
+    data = _fill(db, 600, 16, seed=6)
+    reader = db.reader()
+    passed = []
+    search = api._beam.hnsw_search
+
+    def spy(*a, **kw):
+        passed.append(kw["ef_upper"])
+        return search(*a, **kw)
+
+    monkeypatch.setattr(api._beam, "default_ef_upper", lambda n, ef: min(32, ef))
+    monkeypatch.setattr(api._beam, "hnsw_search", spy)
+    with tracing.record() as spans:
+        reader.by_vecs(data[:4], n=5, ef_search=48)
+        reader.nns(5).ef_search(48).ef_upper(4).by_vectors(data[:4])
+    assert [s.fields["ef_upper"] for s in spans if s.name == "reader_search"] == passed == [32, 4]
+
+
 def test_truncated_flag_is_per_row(db):
     """One trapped query must not stamp every row of the batch: a path
     graph (worst case for beam termination) swapped into an open Reader."""

@@ -27,6 +27,7 @@ from hannoy_tpu_torch.build import builder, bulk, wave_ops
 from hannoy_tpu_torch.build.bulk import bulk_build
 from hannoy_tpu_torch.models import hnsw
 from hannoy_tpu_torch.ops import beam, distances
+from hannoy_tpu_torch.utils import tracing
 
 pytest_plugins = ("jax_programs",)  # clears JAX's compiled programs between tests: tests/jax_programs.py
 
@@ -107,7 +108,7 @@ def test_greedy_descend_matches_jax(ref):
     assert share >= 0.99
 
 
-@pytest.mark.parametrize("ef_upper", [1, 4])
+@pytest.mark.parametrize("ef_upper", [1, 4, 32])
 @pytest.mark.parametrize("ef", [16, 48])
 def test_hnsw_search_matches_jax(ref, ef, ef_upper):
     data, queries, jg = ref
@@ -127,7 +128,7 @@ def test_hnsw_search_matches_jax(ref, ef, ef_upper):
         assert int(got.iters) == int(want.iters)
 
 
-@pytest.mark.parametrize("ef_upper", [1, 4])
+@pytest.mark.parametrize("ef_upper", [1, 4, 32])
 def test_insertion_seeds_match_jax_search_descent(ref, ef_upper):
     """The seeds of a level-0 item's insertion are the seeds a search for
     its vector starts from: ``descend_for_slots(..., ef_upper)`` on stored
@@ -144,11 +145,22 @@ def test_insertion_seeds_match_jax_search_descent(ref, ef_upper):
     assert share >= 0.99
 
 
-def test_append_seeds_level0_items_with_the_pooled_descent(monkeypatch):
+@pytest.mark.parametrize("n", [0, 16383, 16384, 499999, 500000, 10**7])
+@pytest.mark.parametrize("ef", [1, 8, 32, 48, 96])
+def test_default_ef_upper_matches_jax(monkeypatch, n, ef):
+    """The pooled descent's width by index size, on both sides of each
+    threshold (8 wide from 16,384 items, 32 from 500,000)."""
+    monkeypatch.delenv("HANNOY_TPU_EF_UPPER", raising=False)
+    assert beam.default_ef_upper(n, ef) == jax_beam.default_ef_upper(n, ef)
+
+
+@pytest.mark.parametrize("width", [4, 32])
+def test_append_seeds_level0_items_with_the_pooled_descent(monkeypatch, width):
     """An append to an index wide enough for ``default_ef_upper`` to exceed
-    1 (forced here at a small size) seeds level-0 items with that width and
-    items of higher levels greedily; the graph stays valid and every
-    appended item is found first for its own vector."""
+    1 (forced here at a small size: 32 is its width at >= 500,000 items)
+    seeds level-0 items with that width, as the ``insert_seeds`` span
+    records, and items of higher levels greedily; the graph stays valid
+    and every appended item is found first for its own vector."""
     data, _ = _data()
     n_built = N - 200
     g = _stage(hnsw, data)
@@ -162,10 +174,13 @@ def test_append_seeds_level0_items_with_the_pooled_descent(monkeypatch):
         return seeds
 
     monkeypatch.setattr(beam, "descend_for_slots", spy)
-    monkeypatch.setattr(beam, "default_ef_upper", lambda n, ef: 4)
-    builder.build_graph(g, np.arange(n_built, N, dtype=np.int64), np.empty(0, np.int64), _opts(builder), device="cpu")
-    assert widths and {w for w in widths if w[0] == 1} == {(1, 4, 4)}
+    monkeypatch.setattr(beam, "default_ef_upper", lambda n, ef: width)
+    with tracing.record() as spans:
+        builder.build_graph(g, np.arange(n_built, N, dtype=np.int64), np.empty(0, np.int64), _opts(builder), device="cpu")
+    assert widths and {w for w in widths if w[0] == 1} == {(1, width, width)}
     assert all(w[1:] == (1, 1) for w in widths if w[0] > 1)
+    recorded = {(s.fields["level"], s.fields["ef_upper"]) for s in spans if s.name == "insert_seeds"}
+    assert {w for lv, w in recorded if lv == 0} == {width} and all(w == 1 for lv, w in recorded if lv > 0)
     g.check_validity()
     q = torch.from_numpy(data[n_built:])
     qn = torch.from_numpy(distances.np_norms(distances.COSINE, data[n_built:]))
