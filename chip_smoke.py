@@ -7,9 +7,11 @@ Run from the repository root on a machine with a CUDA card and nvcc:
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. card: the ``nvidia-smi`` name and power limit, TF32 off;
-2. build: the gather-distance kernel, compiled with nvcc from
-   ``hannoy_tpu_torch/csrc/gather_distances.cu``, and the store library,
-   compiled with g++ from ``hannoy_tpu_torch/store/native/kvstore.cpp``;
+2. build: the gather-distance kernel and the search kernels, compiled
+   with nvcc from ``hannoy_tpu_torch/csrc/gather_distances.cu`` and
+   ``hannoy_tpu_torch/csrc/search.cu`` (one nvcc each, started together),
+   and the store library, compiled with g++ from
+   ``hannoy_tpu_torch/store/native/kvstore.cpp``;
 3. kernel against its plain twin on a random [100000, 768] store, at the
    main path's shapes — build hop [4096, 32], search hop [256, 32], the
    bulk build's random candidates [8192, 8], the upper-layer rows of
@@ -42,7 +44,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 4. the insertion-wave path at 100k × 768 cosine (``bench.py``'s data,
    seed 42): stage → ``build_graph(bulk=False)`` (efc 48, wave 4096) →
    ``check_validity`` → ``to_device`` → ``hnsw_search`` at ef 50 and 100,
-   recall@10 against ``flat_topk`` (required >= 0.93 at ef=100);
+   recall@10 against ``flat_topk`` (required >= 0.93 at ef=100); then
+   the same build four times more, in turns with its searches' loops on
+   the search kernels and on the host loop (kernels, host loop, host
+   loop, kernels: seconds, and whether the links are the same);
 5. the default build on the same data: ``BuildOptions`` with ``bulk``
    left at None, which at 100k fresh items is the bulk (cluster-blocked)
    path; then the same checks, plus the peak device memory. It fails if
@@ -101,7 +106,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    held to 0.93): every answer a live candidate, every row full, QPS and
    recall@10 against the masked ``flat_topk``; and ``Reader.by_items`` of
    256 present and 2 absent items (``None`` there, no item returned for
-   itself, recall@10 >= 0.93 against ``flat_topk`` without the item);
+   itself, recall@10 >= 0.93 against ``flat_topk`` without the item; one
+   launch of the beam kernel, none of the gather kernel);
    then cancellation: ``by_vectors``, ``by_items`` and a filtered
    ``by_vectors`` at 10% with a cancel that never fires (the uncancelled
    answers, id for id and distance for distance) and with one that fires
@@ -156,10 +162,46 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``insert_seeds``) and must be 32. Every span is fenced and carries its
    kernel launches, and every launch must take the staged design.
 
+13. the search kernels (``csrc/search.cu``: the beam search and the
+   greedy descent, each one launch for a batch), which serve every search
+   of dense rows on the card: first, on stores built on the card that no
+   other phase holds — one row (ef 10), 40 items searched at ef 64 (a
+   pool that never fills), 3,000 items with NaN rows on the walks and then
+   at an entry point — the kernels equal the host loop
+   (``beam.beam_search_loop``, ``greedy_descend_loop``, called directly)
+   and their plain versions (``search_cuda.*_rowwise``) bit for bit; then
+   on the Readers of phase 6 (100k f32 cosine), of every phase-8 cell
+   (bf16 and int8 cosine, euclidean raw / bf16 / int8, euclidean raw by
+   waves) and of phase 12 (1M f32 cosine): ``hnsw_search`` at ef 100 by
+   at most 3 launches of them and none of the gather kernel, equal bit for
+   bit to the host loop on the batch and to the plain versions on its
+   first 16 rows (which are also the batch's rows: a row is searched on
+   its own), and with the plain twin's distances 99% of the slots within
+   1e-5 relative; the same at ef 512 and (phases 6 and 12) on the graph
+   uploaded with 8 empty layer-0 columns; each launch of that search timed
+   on its own inputs (CUDA-graph replay, as phase 3 times; and one call
+   between CUDA events; at phases 6 and 12 the layer-0 beam also at ef 50
+   and 200) beside the host loop's call, its
+   bound (each distinct store row it computed a distance to, each
+   distinct link row and slot-row entry its hops read, the queries, seeds
+   and pools, over the HBM rate: one more call of it marks what it reads,
+   ``search_cuda.seen_buffer``) and its per-pair floor (every distance's
+   row and every hop's link row read anew, from its per-row counters),
+   hops per row and µs per hop, and once per form (f32 cosine at 1M) the
+   plain versions of the greedy descent and the layer-0 beam on the
+   batch's first 16 rows; and at phases 6 and 12 ``by_vecs`` in turns (kernels,
+   host loop, host loop, kernels: the same answers at every ef, QPS) with
+   one profiled window of each (5 calls in a row: the idle share). Every
+   ``hnsw_search`` and ``descend_for_slots`` of phases 4-12 is watched:
+   each one on dense rows must launch the search kernels and no gather
+   kernel (a search without a cancel at most 3 launches), each on packed
+   rows none of them.
+
 The build seconds of phases 4 and 5 are the wall time of an unfenced
-``build_graph``, ended by one ``torch.cuda.synchronize()``. The kernel's
+``build_graph``, ended by one ``torch.cuda.synchronize()``. The kernels'
 launch counts (in all and per [B, K]) are set to 0 just before the build
-and before the search and read just after each; both must be > 0.
+and before the search and read just after each: the build must launch a
+kernel, the search only the search kernels (1-3 a call).
 
 The last three lines are the card line, a JSON object describing the
 kernel, and ``{"ok": true, "device": {...}}``; the line before them
@@ -172,7 +214,12 @@ each step counted from 0, the kernel design that served them, and as its
 headline the phase-3 case of the shape those phases launch most. The run
 fails if a form was never launched, or if a launch of phases 5-12 (all at
 768-wide rows, whole 16-byte units) did not take the design for such rows:
-the staged design for f32, bf16 and int8, the pair design for packed rows. Phase 3
+the staged design for f32, bf16 and int8, the pair design for packed rows. The
+search kernels have one entry for each kernel and form the main path
+launched (``beam_search[f32/dot]``, ``greedy_descend[bf16/difference]``,
+...): their launches in phases 5-12 and, as the headline, phase 13's case
+of that form on the largest store (the layer-0 beam), with the host
+loop's time beside the plain version's. Phase 3
 also gives each case's per-pair floor (each pair's row read once) beside
 its bound. ``--kernel-only`` stops after phase 3. It needs no network
 and imports nothing of JAX.
@@ -641,6 +688,32 @@ def timed_build(device, data, fence=None, **opts):
     return g, stats, time.perf_counter() - t0, spans
 
 
+def build_turns(device, data, label: str, card: str, **opts) -> dict:
+    """The build with its searches' loops (insertion seeds, the upper
+    levels' beams) on the search kernels and on the host loop
+    (``host_loops``), in turns: kernels, host loop, host loop, kernels →
+    the wall seconds of each side, and whether the two built the same
+    links (the kernels equal the host loop bit for bit; recorded, not
+    required, as a build on the card is not held to be deterministic)."""
+    t: dict[str, list] = {"kernels": [], "host_loop": []}
+    links = {}
+    for who in ("kernels", "host_loop", "host_loop", "kernels"):
+        build = lambda: timed_build(device, data, **opts)  # noqa: E731
+        g, _, wall, _ = build() if who == "kernels" else host_loops(build)
+        t[who].append(wall)
+        links.setdefault(who, (g.links0.copy(), [u.copy() for u in g.upper_links]))
+        del g
+    (a0, au), (b0, bu) = links["kernels"], links["host_loop"]
+    same = bool(np.array_equal(a0, b0)) and len(au) == len(bu) and all(np.array_equal(x, y) for x, y in zip(au, bu))
+    out = {who: {"seconds": v, "median_s": float(np.median(v))} for who, v in t.items()}
+    out["same_links"] = same
+    out["ratio"] = out["kernels"]["median_s"] / out["host_loop"]["median_s"]
+    print(f"[{label}] build in turns: the search kernels {t['kernels'][0]:.3f} / {t['kernels'][1]:.3f} s, the host loop "
+          f"{t['host_loop'][0]:.3f} / {t['host_loop'][1]:.3f} s (kernels / host loop {out['ratio']:.3f}); the same links: "
+          f"{same} ({card})", flush=True)
+    return out
+
+
 def _shapes(by_shape: dict) -> dict:
     return {f"{b}x{k}": n for (b, k), n in sorted(by_shape.items())}
 
@@ -689,21 +762,498 @@ def profiled(fn, label: str, what: str) -> dict:
     return out
 
 
+#: the watched search entry points (``watch_searches``): per call, whether
+#: its graph is in the search kernels' scope, whether it had a cancel, and
+#: the launches of the search kernels and of the gather kernel inside it
+SEARCH_CALLS: dict[str, list] = {"hnsw_search": [], "descend_for_slots": []}
+#: set while ``host_loops`` runs a comparison's host loop (its calls are not the main path's)
+HOST_LOOPS = [False]
+#: phase 13's timed cases, one per kernel launch (greedy descent, layer-1
+#: and layer-0 beams) of each checked search
+SEARCH_CASES: list[dict] = []
+
+
+def watch_searches() -> None:
+    """Wrap ``beam.hnsw_search`` (every ``Reader.by_vecs`` without
+    candidates and every shard's search call it; an unfiltered
+    ``by_items`` runs one beam, checked in phase 9) and
+    ``beam.descend_for_slots`` (the insertion seeds of appends and of the
+    lockstep waves) so that each call records what it launched into
+    ``SEARCH_CALLS``; ``check_search_calls`` holds them to the rule."""
+    from hannoy_tpu_torch.ops import beam, beam_cuda, search_cuda
+
+    for name in SEARCH_CALLS:
+        fn = getattr(beam, name)
+
+        def watched(g, *args, _fn=fn, _name=name, **kw):
+            if HOST_LOOPS[0]:  # a comparison's run of the host loop
+                return _fn(g, *args, **kw)
+            gathers, searches = beam_cuda.KERNEL.launches, sum(search_cuda.KERNELS.launches.values())
+            out = _fn(g, *args, **kw)
+            SEARCH_CALLS[_name].append({
+                "in_scope": beam._on_kernel(g), "cancel": kw.get("cancel") is not None,
+                "search": sum(search_cuda.KERNELS.launches.values()) - searches,
+                "gather": beam_cuda.KERNEL.launches - gathers})
+            return out
+
+        setattr(beam, name, watched)
+
+
+def check_search_calls() -> dict:
+    """Every watched call in the search kernels' scope (dense rows on the
+    card) went through them: no launch of the gather kernel inside it, and
+    an ``hnsw_search`` without a cancel at most 3 launches (the greedy
+    descent, the layer-1 and the layer-0 beam); one out of scope launched
+    none of them. → a summary per entry point."""
+    out = {}
+    for name, calls in SEARCH_CALLS.items():
+        bad = [c for c in calls if (c["in_scope"] and (c["gather"] or not c["search"]
+                                                       or (name == "hnsw_search" and not c["cancel"] and c["search"] > 3)))
+               or (not c["in_scope"] and c["search"])]
+        if bad:
+            raise AssertionError(f"{name}: {len(bad)} calls broke the search kernels' rule, e.g. {bad[:3]}")
+        kern = [c for c in calls if c["in_scope"]]
+        out[name] = {"calls": len(calls), "through_the_kernels": len(kern), "host_loop": len(calls) - len(kern),
+                     "launches_per_call_max": max((c["search"] for c in kern if not c["cancel"]), default=0),
+                     "with_cancel": sum(c["cancel"] for c in kern)}
+    if not out["hnsw_search"]["through_the_kernels"] or not out["descend_for_slots"]["through_the_kernels"]:
+        raise AssertionError(f"the main path's searches or insertion seeds never took the search kernels: {out}")
+    print(f"search entry points: {json.dumps(out)}", flush=True)
+    return out
+
+
+def host_loops(fn):
+    """``fn()`` with the searches' loops on the host (``beam_search_loop``,
+    ``greedy_descend_loop``): the host loop, called directly, for the
+    comparisons and the turns of phase 13."""
+    from hannoy_tpu_torch.ops import beam
+
+    saved = beam.beam_search, beam.greedy_descend
+    beam.beam_search, beam.greedy_descend = beam.beam_search_loop, beam.greedy_descend_loop
+    HOST_LOOPS[0] = True
+    try:
+        return fn()
+    finally:
+        beam.beam_search, beam.greedy_descend = saved
+        HOST_LOOPS[0] = False
+
+
+def _same_bits(label: str, what: str, got, want, rows: int | None = None) -> None:
+    """Two beam results equal bit for bit (slots, distance bits, and over
+    the whole batch the iteration count and the active rows)."""
+    import torch
+
+    a, b = (got.slots, got.dists.view(torch.int32)), (want.slots, want.dists.view(torch.int32))
+    if rows is not None:
+        a = tuple(t[:rows] for t in a)
+    same = all(bool(torch.equal(x, y)) for x, y in zip(a, b))
+    if rows is None:
+        same = same and int(got.iters) == int(want.iters) and bool(torch.equal(got.active, want.active))
+    if not same:
+        diff = int((a[0] != b[0]).sum())
+        raise AssertionError(f"[{label}] the search kernels differ from {what}: {diff} slots, iters "
+                             f"{int(got.iters)} / {int(want.iters)}")
+
+
+def _events_ms(fn, reps: int = 5) -> float:
+    """Median over ``reps`` CUDA-event pairs of one call of ``fn`` (after a
+    warm-up call)."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def _search_bound(kernel: str, dev, last: dict, seen: dict) -> tuple[float, str, dict]:
+    """The least time (ms) of the kernel's last call (``KERNELS.last``,
+    ``seen``: ``search_cuda.seen_counts`` of the same call, marked): the
+    larger of its bytes — each distinct store row it computed a distance
+    to (and its header where the form reads one), each distinct link row
+    and slot-row entry its hops read, the queries, seeds and outputs, each
+    read or written once — over the HBM rate, and its operations (per
+    element 2 for a dot, 3 for a difference, for every distance computed)
+    over the f32 rate → (ms, "bytes" or "operations", the counts, with the
+    per-pair floor: the bytes if every distance read its row and every hop
+    its link row anew, as the kernel does, over the HBM rate)."""
+    metric = dev.metric
+    n_dist, hops = int(last["n_dist"].sum()), int(last["hops"].sum())
+    b, d = last["batch"], last["dim"]
+    int8_scale = dev.vectors.dtype.itemsize == 1 and metric.name != "cosine"
+    row = last["row_bytes"] + (4 if metric.name == "cosine" or int8_scale else 0)
+    if kernel == "beam_search":
+        link = last["width"] * 4 + (4 if last["level"] else 0)
+        io = b * (d * 4 + 4 + last["n_start"] * 4 + last["ef"] * 12 + 12)
+    else:
+        link = last["width"] * 4 + 4
+        io = b * (d * 4 + 4 + 16) + last["n_entry"] * 4
+    nbytes = (seen["rows"] * row + seen["links0"] * dev.links0.shape[1] * 4 + seen["upper"] * dev.upper_links.shape[-1] * 4
+              + seen["slot_rows"] * 4 + io)
+    pair_bytes = n_dist * row + hops * link + io
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_dist * d * (2 if metric.name == "cosine" else 3) / F32_FLOPS * 1e3
+    counts = {"distances": n_dist, "hops": hops, "max_row_hops": int(last["hops"].max()),
+              "mean_row_hops": hops / max(1, b), "bytes": nbytes, "distinct": seen,
+              "pair_bytes": pair_bytes, "pair_floor_ms": pair_bytes / HBM_BYTES_PER_S * 1e3}
+    return (bytes_ms, "bytes", counts) if bytes_ms >= ops_ms else (ops_ms, "operations", counts)
+
+
+#: the forms whose plain versions phase 13 has timed (once per form; f32
+#: cosine at phase 12's size)
+PLAIN_TIMED: set = {"f32/dot"}
+#: phase 13: the ef of the checked searches, rows the plain versions run
+#: in the bit-for-bit comparisons, the wide pool, the slack columns
+SEARCH_EF = 100
+#: launches of a search kernel in the CUDA graph that phase 13 times
+SEARCH_LAUNCHES = 4
+#: by_vecs calls a profiled window of ``search_turns`` holds
+PROFILED_CALLS = 5
+ROWWISE_ROWS = 16
+WIDE_EF = 512
+SEARCH_SLACK = 8
+
+
+def search_kernel_checks(label: str, reader, queries, card: str, slack: bool = False, plain_timing: bool = False,
+                         timing_efs: tuple = (SEARCH_EF,)) -> dict:
+    """Phase 13 on the Reader of another phase: the search kernels against
+    the host loop and the plain versions on its graph, and each kernel
+    timed. (1) ``hnsw_search`` at ef ``SEARCH_EF`` (its pooled descent as
+    wide as the Reader's) by the kernels: at most 3 launches, none of the
+    gather kernel, equal bit for bit to the host loop on the same batch and
+    to the plain versions on its first ``ROWWISE_ROWS`` rows, which must
+    also be the batch's rows (rows are searched each on its own); the
+    plain versions with the plain twin's distances agree on 99% of the
+    slots, distances within 1e-5 relative (``max_abs_err``). (2) Each
+    launch of that search (greedy descent, layer-1 beam, layer-0 beam) on
+    its own inputs (the layer-0 beam at each ef of ``timing_efs``): ms
+    (the device's: ``per_launch_ms``, CUDA-graph replay
+    of ``SEARCH_LAUNCHES`` launches) and a call's ms between two CUDA
+    events (the wrapper's host work included), the host loop's ms for the
+    same call (events), with ``plain_timing`` the plain version's ms on the
+    batch's first ``ROWWISE_ROWS`` rows (the greedy descent and the layer-0
+    beam at ``SEARCH_EF``), the bound (from one more call that marks what
+    it reads: ``_search_bound``), hops per row and µs per hop (a launch
+    lasts its slowest row). (3) ef ``WIDE_EF`` and, with ``slack``, the graph
+    uploaded with ``SEARCH_SLACK`` empty layer-0 columns: kernels = host
+    loop on the batch, = plain versions on 4 rows."""
+    import torch
+
+    from hannoy_tpu_torch.models import hnsw
+    from hannoy_tpu_torch.ops import beam, beam_cuda, search_cuda
+
+    dev, device = reader._dev, reader._dev.vectors.device
+    q, qn = reader._prep_queries(queries)
+    n = reader.n_items()
+    ef, mi = SEARCH_EF, 2 * SEARCH_EF + 16
+    efu = beam.default_ef_upper(n, ef)
+    form = "/".join(beam_cuda.form_of(dev.metric, dev.vectors.dtype))
+    out: dict = {"form": form, "store_rows": n, "ef": ef, "ef_upper": efu, "cases": []}
+
+    # (1) the search by the kernels, the host loop and the plain versions
+    reset_counts()
+    got = beam.hnsw_search(dev, q, qn, ef, max_iters=mi, ef_upper=efu)
+    _sync(device)
+    out["launches"] = dict(search_cuda.KERNELS.launches)
+    if beam_cuda.KERNEL.launches or not 1 <= sum(out["launches"].values()) <= 3:
+        raise AssertionError(f"[{label}] the search launched {out['launches']} search kernels and "
+                             f"{beam_cuda.KERNEL.launches} gather kernels")
+    _same_bits(label, "the host loop", got, host_loops(lambda: beam.hnsw_search(dev, q, qn, ef, max_iters=mi, ef_upper=efu)))
+    rows = slice(0, ROWWISE_ROWS)
+    part = search_cuda.hnsw_search_rowwise(dev, q[rows], qn[rows], ef, mi, ef_upper=efu)
+    _same_bits(label, "the plain versions", beam.hnsw_search(dev, q[rows], qn[rows], ef, max_iters=mi, ef_upper=efu), part)
+    _same_bits(label, "the plain versions on the batch's rows", got, part, rows=ROWWISE_ROWS)
+    plain = search_cuda.hnsw_search_rowwise(dev, q[rows], qn[rows], ef, mi, ef_upper=efu, plain=True)
+    match = plain.slots == part.slots
+    both = match & (part.slots >= 0)
+    err = (part.dists[both] - plain.dists[both]).abs()
+    out["plain_twin"] = {"identical_slots": float(match.float().mean()), "max_abs_err": float(err.max()) if err.numel() else 0.0}
+    if out["plain_twin"]["identical_slots"] < 0.99 or bool((err > 1e-5 + 1e-5 * plain.dists[both].abs()).any()):
+        raise AssertionError(f"[{label}] the search kernels against the plain versions with plain distances: {out['plain_twin']}")
+
+    # (2) each launch of that search, timed on its own inputs
+    top = dev.max_level
+    steps = []
+    bottom = 2 if efu > 1 else 1
+    if top >= bottom:
+        cur = search_cuda.greedy_descend_kernel(dev, q, qn, top, bottom, 128, dev.valid)
+        steps.append(("greedy_descend", top,
+                      (lambda seen=None: search_cuda.greedy_descend_kernel(dev, q, qn, top, bottom, 128, dev.valid, seen=seen)),
+                      (lambda: beam.greedy_descend_loop(dev, q, qn, top, bottom, 128, dev.valid)),
+                      (lambda: search_cuda.greedy_descend_rowwise(dev, q[rows], qn[rows], top, bottom)),
+                      [q.shape[0], 1, dev.upper_links.shape[-1]]))
+        start = cur[:, None]
+    else:
+        start = dev.entry_slots[None, :].expand(q.shape[0], -1)
+    if efu > 1 and top >= 1:
+        s1 = start
+        steps.append(("beam_search", 1,
+                      (lambda seen=None: search_cuda.beam_search_kernel(dev, q, qn, s1, efu, 2 * efu + 16, dev.valid, 1, seen=seen)),
+                      (lambda: beam.beam_search_loop(dev, q, qn, s1, efu, node_ok=dev.valid, level=1)),
+                      (lambda: search_cuda.beam_search_rowwise(dev, q[rows], qn[rows], s1[rows], efu, level=1)),
+                      [q.shape[0], efu, dev.upper_links.shape[-1]]))
+        start = search_cuda.beam_search_kernel(dev, q, qn, s1, efu, 2 * efu + 16, dev.valid, 1)[1]
+    s0 = start
+    # the layer-0 beam at each ef of timing_efs (the descent before it is
+    # the same at each: its width default_ef_upper(n, ef) is, at these ef)
+    for e in timing_efs:
+        m = 2 * e + 16
+        steps.append(("beam_search", 0,
+                      (lambda seen=None, e=e, m=m: search_cuda.beam_search_kernel(dev, q, qn, s0, e, m, dev.valid, 0, seen=seen)),
+                      (lambda e=e, m=m: beam.beam_search_loop(dev, q, qn, s0, e, m, dev.valid, 0)),
+                      (lambda e=e, m=m: search_cuda.beam_search_rowwise(dev, q[rows], qn[rows], s0[rows], e, m)),
+                      [q.shape[0], e, dev.links0.shape[1]]))
+    for kernel, level, fn, host_fn, plain_fn, shape in steps:
+        # the launch's device time: replays of a CUDA graph of SEARCH_LAUNCHES
+        # calls (no host work in the time); beside it one call between two
+        # events, the wrapper's host work included
+        ms = per_launch_ms([fn], SEARCH_LAUNCHES)
+        call_ms = _events_ms(fn)
+        seen = search_cuda.seen_buffer(dev)
+        fn(seen=seen)  # the same call once more, marking what it reads
+        last = search_cuda.KERNELS.last[kernel]
+        bound_ms, bound_by, counts = _search_bound(kernel, dev, last, search_cuda.seen_counts(dev, seen))
+        del seen
+        case = {"kernel": kernel, "form": form, "level": level, "store_rows": n, "shape": shape + [dev.vectors.shape[1]],
+                "search_ef": shape[1] if level == 0 else ef,
+                "ms": ms, "call_ms": call_ms, "host_loop_ms": _events_ms(host_fn, reps=3), "bound_ms": bound_ms,
+                "bound_by": bound_by,
+                "roofline_share": bound_ms / ms, **counts, "pair_floor_share": counts["pair_floor_ms"] / ms,
+                "us_per_hop": ms * 1e3 / max(1, counts["max_row_hops"]),
+                "dependent_loads": (4 if kernel == "greedy_descend" else 3) * counts["max_row_hops"],
+                "max_abs_err": out["plain_twin"]["max_abs_err"], "plain_ms": None, "plain_rows": None, "library_ms": None,
+                "card": card}
+        if plain_timing and (kernel == "greedy_descend" or (level == 0 and shape[1] == ef)):  # the headlines
+            _sync(device)
+            t0 = time.perf_counter()
+            plain_fn()
+            _sync(device)
+            case["plain_ms"], case["plain_rows"] = (time.perf_counter() - t0) * 1e3, ROWWISE_ROWS
+        out["cases"].append(case)
+        SEARCH_CASES.append(case)
+        plain_ms = (f"{case['plain_ms']:.3f} ms on {ROWWISE_ROWS} rows" if case["plain_ms"] is not None
+                    else "not timed")
+        print(f"[{label}] {kernel} level {level} {shape} {form} on {n} items: {ms:.4f} ms ({case['us_per_hop']:.2f} us per "
+              f"hop of the slowest row, {counts['mean_row_hops']:.1f} hops a row, max {counts['max_row_hops']}; "
+              f"{call_ms:.4f} ms a call with the wrapper's host work; "
+              f"{counts['distances']} distances), host loop {case['host_loop_ms']:.3f} ms, plain {plain_ms}, bound "
+              f"{bound_ms:.4f} ms ({bound_by}, share {case['roofline_share']:.3f}; distinct {json.dumps(counts['distinct'])}); "
+              f"per-pair floor {counts['pair_floor_ms']:.4f} ms (share {case['pair_floor_share']:.3f}); "
+              f"{case['dependent_loads']} dependent loads in the slowest row ({card})", flush=True)
+
+    # (3) a wide pool, and rows wider than m0
+    wide = beam.hnsw_search(dev, q, qn, WIDE_EF, ef_upper=efu)
+    _same_bits(label, f"the host loop at ef {WIDE_EF}", wide, host_loops(lambda: beam.hnsw_search(dev, q, qn, WIDE_EF, ef_upper=efu)))
+    _same_bits(label, f"the plain versions at ef {WIDE_EF}", wide,
+               search_cuda.hnsw_search_rowwise(dev, q[:4], qn[:4], WIDE_EF, ef_upper=efu), rows=4)
+    checked = [f"ef {WIDE_EF}"]
+    if slack:
+        wide_rows = hnsw.to_device(reader._graph, device, serve_only=True, link_slack=SEARCH_SLACK)
+        if wide_rows.links0.shape[1] != dev.links0.shape[1] + SEARCH_SLACK:
+            raise AssertionError(f"[{label}] the slack upload has {wide_rows.links0.shape[1]} layer-0 columns")
+        res = beam.hnsw_search(wide_rows, q, qn, ef, max_iters=mi, ef_upper=efu)
+        _same_bits(label, "the host loop on slack rows", res,
+                   host_loops(lambda: beam.hnsw_search(wide_rows, q, qn, ef, max_iters=mi, ef_upper=efu)))
+        _same_bits(label, "the plain versions on slack rows", res,
+                   search_cuda.hnsw_search_rowwise(wide_rows, q[:4], qn[:4], ef, mi, ef_upper=efu), rows=4)
+        _same_bits(label, "the search without slack", res, got, rows=q.shape[0])
+        checked.append(f"{SEARCH_SLACK} slack columns")
+        del wide_rows
+        torch.cuda.empty_cache()
+    reset_counts()
+    print(f"[{label}] the search kernels equal the host loop and the plain versions bit for bit at ef {ef} (ef_upper "
+          f"{efu}) and at {', '.join(checked)}; against the plain twin's distances {out['plain_twin']['identical_slots']:.4f} "
+          f"of the slots, max abs err {out['plain_twin']['max_abs_err']:.3e} ({card})", flush=True)
+    return out
+
+
+def _nan_walk_rows(dev) -> list[int]:
+    """Slots to fill with NaN so that searches meet them: each entry point's
+    first link at the highest level it has one, and every 37th slot."""
+    top = dev.max_level
+    entries = [int(e) for e in dev.entry_slots if e >= 0]
+    rows = [dev.upper_links[lv - 1][int(dev.slot_rows[lv - 1][e])] for e in entries for lv in range(top, 0, -1)]
+    return sorted({int(r[r >= 0][0]) for r in rows if bool((r >= 0).any())}) + list(range(0, dev.capacity, 37))
+
+
+def search_edge_cases(device, card: str) -> dict:
+    """Phase 13's cases that no other phase's database holds, at 768 wide
+    f32 rows built on the card: a one-row store (ef 10) and a store of 40
+    items searched at ef 64 (a pool that never fills), cosine; and a store
+    of 3,000 under euclidean (the kernels' cosine epilogue clamps a NaN to
+    distance 1) whose rows hold NaN on the walks (each entry point's first link
+    at the highest level it has one, every 37th slot; ef 48) and then at
+    an entry point, where every walk must end; 256 queries each: the
+    search kernels equal the host loop and the plain versions (on the
+    first ``ROWWISE_ROWS`` queries of the 3,000-item store) bit for bit."""
+    import torch
+
+    from hannoy_tpu_torch.build import builder
+    from hannoy_tpu_torch.models import hnsw
+    from hannoy_tpu_torch.ops import beam, distances, search_cuda
+
+    label = "phase 13: small stores"
+    rng = np.random.default_rng(50)
+    qs = rng.standard_normal((N_QUERIES, DIM)).astype(np.float32)
+    q = torch.from_numpy(qs).to(device)
+    out = {}
+    for name, n, ef, efu, metric in (("one_row", 1, 10, 1, distances.COSINE),
+                                     ("ef_past_the_items", 40, 64, 8, distances.COSINE),
+                                     ("nan_rows", 3000, 48, 8, distances.EUCLIDEAN)):
+        qn = torch.from_numpy(distances.np_norms(metric, qs)).to(device)
+        data = rng.standard_normal((n, DIM)).astype(np.float32)
+        g = hnsw.HostGraph.empty(metric, DIM, M, M0, capacity=hnsw.slot_capacity(n))
+        for i in range(n):
+            g.alloc_slot(i)
+        g.vectors[:n] = data
+        g.norms[:n] = distances.np_norms(metric, data)
+        builder.build_graph(g, np.arange(n), np.empty(0, np.int64), builder.BuildOptions(bulk=False), device=device)
+        dev = hnsw.to_device(g, device, serve_only=True)
+        if name == "nan_rows":
+            dev.vectors[torch.tensor(_nan_walk_rows(dev), device=device)] = float("nan")
+        reset_counts()
+        got = beam.hnsw_search(dev, q, qn, ef, ef_upper=efu)
+        launches = dict(search_cuda.KERNELS.launches)
+        _same_bits(label, f"the host loop ({name})", got, host_loops(lambda: beam.hnsw_search(dev, q, qn, ef, ef_upper=efu)))
+        rows = N_QUERIES if n < 100 else ROWWISE_ROWS  # the plain versions on the batch's first rows
+        _same_bits(label, f"the plain versions ({name})", got,
+                   search_cuda.hnsw_search_rowwise(dev, q[:rows], qn[:rows], ef, ef_upper=efu),
+                   rows=None if rows == N_QUERIES else rows)
+        filled = (got.slots >= 0).sum(1)
+        if int(filled.max()) > n or not bool(torch.equal(got.slots >= 0, torch.isfinite(got.dists))):
+            raise AssertionError(f"[{label}] {name}: rows hold {int(filled.max())} items of {n}, or an id without a distance")
+        out[name] = {"items": n, "ef": ef, "ef_upper": efu, "launches": launches, "iters": int(got.iters)}
+        out[name]["rows_hold"] = [int(filled.min()), int(filled.max())]
+        if name == "nan_rows":
+            # a NaN entry point: torch.argmin takes the first NaN one, and
+            # no step improves on NaN, so every walk ends there
+            dev.vectors[int(dev.entry_slots[dev.entry_slots >= 0][-1])] = float("nan")
+            entry = next(int(e) for e in dev.entry_slots if e >= 0 and bool(torch.isnan(dev.vectors[e]).any()))
+            cur = beam.greedy_descend(dev, q, qn, dev.max_level, 1)
+            host = host_loops(lambda: beam.greedy_descend(dev, q, qn, dev.max_level, 1))
+            plain = search_cuda.greedy_descend_rowwise(dev, q, qn, dev.max_level, 1)
+            if not (torch.equal(cur, host) and torch.equal(cur, plain) and bool((cur == entry).all())):
+                raise AssertionError(f"[{label}] a NaN entry point {entry}: the kernel ends on {cur[:6].tolist()}, the "
+                                     f"host loop on {host[:6].tolist()}, the plain version on {plain[:6].tolist()}")
+            out[name]["nan_entry_walks_end_there"] = True
+        print(f"[{label}] {name}: {n} items at ef {ef}: rows hold {int(filled.min())}-{int(filled.max())} of them; the "
+              f"search kernels ({launches}) equal the host loop and the plain versions bit for bit ({card})", flush=True)
+    reset_counts()
+    return out
+
+
+def search_entries() -> list[dict]:
+    """The kernel line's entries of the search kernels: one per kernel and
+    form that the main path (phases 5-12) launched, with its launches there
+    and, as its headline, phase 13's case of that kernel and form on the
+    largest store (the layer-0 beam for ``beam_search``) whose plain
+    version was timed."""
+    replaces = {"beam_search": "hannoy_tpu/ops/beam.py:244", "greedy_descend": "hannoy_tpu/ops/beam.py:100"}
+    entries = []
+    for (kernel, row, family), launches in sorted(MAIN_SEARCH.items()):
+        form = f"{row}/{family}"
+        own = [c for c in SEARCH_CASES if c["kernel"] == kernel and c["form"] == form and c["search_ef"] == SEARCH_EF
+               and c["plain_ms"] is not None and (kernel != "beam_search" or c["level"] == 0)]
+        if not own:
+            raise AssertionError(f"the main path launched {kernel} in {form}: phase 13 timed no such case")
+        head = max(own, key=lambda c: c["store_rows"])
+        levels = {str(level): n for (k, level), n in sorted(MAIN_SEARCH_LEVELS.items()) if k == kernel}
+        print(f"{kernel}[{form}]: {launches} launches on the main path ({kernel} in all forms by level walked: "
+              f"{json.dumps(levels)}); headline "
+              f"{head['shape']} on {head['store_rows']} items: {head['ms']:.4f} ms, bound {head['bound_ms']:.4f} ms, host "
+              f"loop {head['host_loop_ms']:.3f} ms, plain {head['plain_ms']:.3f} ms on {head['plain_rows']} rows", flush=True)
+        entries.append({
+            "name": f"{kernel}[{form}]", "route": "cuda", "source": "hannoy_tpu_torch/csrc/search.cu",
+            "replaces": replaces[kernel], "launches": launches,
+            "shape": head["shape"], "store_rows": head["store_rows"], "max_abs_err": head["max_abs_err"],
+            "ms": head["ms"], "plain_ms": head["plain_ms"], "plain_rows": head["plain_rows"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"], "pair_floor_ms": head["pair_floor_ms"],
+            "library_ms": None,  # no single PyTorch call runs a beam search or a greedy descent
+            "call_ms": head["call_ms"], "host_loop_ms": head["host_loop_ms"], "us_per_hop": head["us_per_hop"],
+            "max_row_hops": head["max_row_hops"], "dependent_loads": head["dependent_loads"],
+        })
+    return entries
+
+
+def search_turns(label: str, reader, queries, ef: int, card: str, profile: bool = False) -> dict:
+    """``Reader.by_vecs`` by the search kernels and by the host loop (called
+    directly), the same answers, then timed in turns (kernels, host, host,
+    kernels; single calls, each ended by a synchronize); with ``profile``
+    one call of each under the profiler for the device's idle share."""
+    want = reader.by_vecs(queries, n=K, ef_search=ef)
+    if host_loops(lambda: reader.by_vecs(queries, n=K, ef_search=ef)) != want:
+        raise AssertionError(f"[{label}] by_vecs at ef {ef}: the host loop answers otherwise than the search kernels")
+    device = reader._dev.vectors.device
+    t = {"kernels": [], "host_loop": []}
+    for who in ("kernels", "host_loop", "host_loop", "kernels"):
+        call = lambda: reader.by_vecs(queries, n=K, ef_search=ef)  # noqa: E731
+        t[who].append(one_call(device, call if who == "kernels" else lambda: host_loops(call)))
+    out = {who: {"qps": N_QUERIES / float(np.median(v)), "seconds": v} for who, v in t.items()}
+    if profile:
+        # PROFILED_CALLS calls in a row under the profiler: a single call of
+        # a few ms may end before the profiler has collected its events
+        for who in ("kernels", "host_loop"):
+            call = lambda: reader.by_vecs(queries, n=K, ef_search=ef)  # noqa: E731
+            fn = call if who == "kernels" else lambda: host_loops(call)
+            out[who]["profiled"] = profiled(lambda: sum(one_call(device, fn) for _ in range(PROFILED_CALLS)), label,
+                                            f"{PROFILED_CALLS} calls of by_vecs ef={ef} by the {who}")
+    print(f"[{label}] by_vecs ef={ef}, in turns: the search kernels {out['kernels']['qps']:.1f} QPS, the host loop "
+          f"{out['host_loop']['qps']:.1f} QPS (same answers) ({card})", flush=True)
+    return out
+
+
 #: launches of the main path (phases 5-12) per form "row/family" → {"launches", "by_shape"}
 MAIN_PATH: dict[str, dict] = {}
 #: launches of the main path per (row type, kernel design)
 MAIN_DESIGNS: dict[tuple[str, str], int] = {}
 #: launches of phase 12 (f32 cosine rows, a store of N_SCALE items) per "BxK"
 SCALE_LAUNCHES: dict[str, int] = {}
+#: the search kernels' launches on the main path (phases 5-12) per (kernel, row type, family)
+MAIN_SEARCH: dict[tuple[str, str, str], int] = {}
+#: the search kernels' launches on the main path per (kernel, level walked)
+MAIN_SEARCH_LEVELS: dict[tuple[str, int], int] = {}
+#: per main-path step (``count_main_path``'s label): the gather kernel's
+#: launches and the search kernels' per kernel
+STEP_LAUNCHES: dict[str, dict] = {}
+
+
+def reset_counts() -> None:
+    """Every kernel's launch counts to 0: the gather kernel's and the
+    search kernels'."""
+    from hannoy_tpu_torch.ops import beam_cuda, search_cuda
+
+    beam_cuda.KERNEL.reset_counts()
+    search_cuda.KERNELS.reset_counts()
+
+
+def all_launches() -> int:
+    """Launches of the gather kernel and the search kernels since their
+    last reset (the spans' probe)."""
+    from hannoy_tpu_torch.ops import beam_cuda, search_cuda
+
+    return beam_cuda.KERNEL.launches + sum(search_cuda.KERNELS.launches.values())
 
 
 def count_main_path(step: str) -> dict:
-    """Add the kernel's counts since its last reset (one step of the main
-    path, counted from 0) to ``MAIN_PATH`` → that step's launches per form.
+    """Add the kernels' counts since their last reset (one step of the main
+    path, counted from 0) to ``MAIN_PATH`` (the gather kernel) and
+    ``MAIN_SEARCH`` (the search kernels) → that step's gather launches per
+    form; ``STEP_LAUNCHES[step]`` keeps both kernels' launches of the step.
     A step that ran one form gives that form its launches per [B, K]."""
-    from hannoy_tpu_torch.ops import beam_cuda
+    from hannoy_tpu_torch.ops import beam_cuda, search_cuda
 
     kernel = beam_cuda.KERNEL
+    for key, n in search_cuda.KERNELS.by_form.items():
+        MAIN_SEARCH[key] = MAIN_SEARCH.get(key, 0) + n
+    for key, n in search_cuda.KERNELS.by_level.items():
+        MAIN_SEARCH_LEVELS[key] = MAIN_SEARCH_LEVELS.get(key, 0) + n
+    STEP_LAUNCHES[step] = {"gather": kernel.launches, "search": dict(search_cuda.KERNELS.launches)}
     forms = {f"{row}/{family}": n for (row, family), n in kernel.by_form.items()}
     if sum(forms.values()) != kernel.launches or sum(kernel.by_design.values()) != kernel.launches:
         raise AssertionError(f"[{step}] launches per form {forms} or per design {kernel.by_design} do not add up "
@@ -726,20 +1276,22 @@ def drive(device, data, queries, label: str, main_path: bool = False, **opts) ->
 
     from hannoy_tpu_torch import default_ef_upper, flat_topk, hnsw_search
     from hannoy_tpu_torch.models.hnsw import to_device
-    from hannoy_tpu_torch.ops import beam_cuda, distances
+    from hannoy_tpu_torch.ops import beam_cuda, distances, search_cuda
 
     metric = distances.COSINE
     cuda = device.type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
-    beam_cuda.KERNEL.reset_counts()
+    reset_counts()
     g, stats, build_s, spans = timed_build(device, data, **opts)
     build_launches, build_shapes = beam_cuda.KERNEL.launches, _shapes(beam_cuda.KERNEL.by_shape)
+    build_search = dict(search_cuda.KERNELS.launches)
     if main_path:
         count_main_path(f"{label}: build")
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
     print(f"[{label}] build: {N} x {DIM} cosine in {build_s:.3f} s ({N / build_s:.1f} vec/s), waves {stats.waves}, "
           f"beam iters {stats.beam_iters}, max_level {g.max_level}, kernel launches {build_launches} {build_shapes}, "
+          f"search kernel launches {build_search}, "
           f"peak device memory {peak / 2**30:.3f} GiB", flush=True)
     t0 = time.perf_counter()
     g.check_validity()
@@ -754,7 +1306,7 @@ def drive(device, data, queries, label: str, main_path: bool = False, **opts) ->
     np.testing.assert_allclose(exact_d[:8].cpu().numpy(), np.sort(few, axis=1)[:, :K], rtol=0, atol=1e-5)
     thresh = exact_d[:, K - 1 : K] + 1e-6
 
-    beam_cuda.KERNEL.reset_counts()
+    reset_counts()
     results = {}
     for ef in EF_SWEEP:
         efu = default_ef_upper(N, ef)
@@ -775,15 +1327,22 @@ def drive(device, data, queries, label: str, main_path: bool = False, **opts) ->
         print(f"[{label}] search ef={ef} ef_upper={efu}: recall@10 {recall:.4f}, {N_QUERIES / dt:.1f} QPS "
               f"({dt * 1e3:.3f} ms per {N_QUERIES}-query batch), beam iters {int(res.iters)}", flush=True)
     search_launches, search_shapes = beam_cuda.KERNEL.launches, _shapes(beam_cuda.KERNEL.by_shape)
+    search_kernels = dict(search_cuda.KERNELS.launches)
     if main_path:
         count_main_path(f"{label}: search")
-    print(f"[{label}] search kernel launches {search_launches} {search_shapes}", flush=True)
+    calls = 6 * len(EF_SWEEP)
+    print(f"[{label}] search: gather kernel launches {search_launches} {search_shapes}, search kernel launches "
+          f"{search_kernels} in {calls} calls", flush=True)
     if results[EF_SWEEP[-1]]["recall_at_10"] < RECALL_BAR:
         raise AssertionError(f"[{label}] recall@10 at ef={EF_SWEEP[-1]} below {RECALL_BAR}: {results}")
-    if build_launches == 0 or search_launches == 0:
-        raise AssertionError(f"[{label}] the gather kernel did not run: build {build_launches}, search {search_launches}")
+    if build_launches + sum(build_search.values()) == 0:
+        raise AssertionError(f"[{label}] no kernel ran in the build")
+    if search_launches or not calls <= sum(search_kernels.values()) <= 3 * calls:
+        raise AssertionError(f"[{label}] the searches did not go through the search kernels alone: gather "
+                             f"{search_launches}, search kernels {search_kernels} in {calls} calls")
     return {
         "build_s": build_s, "build_launches": build_launches, "search_launches": search_launches,
+        "build_search_kernel_launches": build_search, "search_kernel_launches": search_kernels,
         "build_launches_by_shape": build_shapes, "search_launches_by_shape": search_shapes,
         "peak_bytes": peak, "span_names": sorted({s.name for s in spans}), "search": results,
     }
@@ -820,13 +1379,13 @@ def api_path(device, path: str, data, queries, card: str) -> dict:
     ef = EF_SWEEP[-1]
 
     def recorded():
-        return tracing.record(fence=lambda: _sync(device), probe=lambda: kernel.launches)
+        return tracing.record(fence=lambda: _sync(device), probe=all_launches)
 
     def timed(what: str, fn):
         return _timed(label, card, device, what, fn)
 
     out: dict = {"seconds": {}, "spans": {}, "launches_by_shape": {}}
-    kernel.reset_counts()
+    reset_counts()
     # ---- step 1: add → build (bulk) → commit → search ----
     db = Database(path, Metric.COSINE, map_size=API_MAP_SIZE)
     if db.device.type != device.type:
@@ -846,12 +1405,12 @@ def api_path(device, path: str, data, queries, card: str) -> dict:
     out["spans"]["reader_cached"] = _print_spans(label, spans)
     before, _ = timed(f"Reader.by_vecs, first call, ef={ef}", lambda: reader.by_vecs(queries, n=K, ef_search=ef))
     out["launches_by_shape"]["build_and_search"] = _shapes(kernel.by_shape)
-    step1 = kernel.launches
+    step1 = all_launches()
     count_main_path(f"{label}: build and search")
     db.close()
 
     # ---- step 2: reopen → the same answers, recall, validity ----
-    kernel.reset_counts()
+    reset_counts()
     db, out["seconds"]["reopen"] = timed("Database reopen (native store)", lambda: Database(path, Metric.COSINE, map_size=API_MAP_SIZE))
     with recorded() as spans:
         reader, out["seconds"]["reader_open"] = timed("Reader.open (load from the store + upload)", db.reader)
@@ -911,11 +1470,16 @@ def api_path(device, path: str, data, queries, card: str) -> dict:
           f"{out['api_host_ms_per_batch']:.3f} ms per batch); hnsw_search alone on the same graph "
           f"{out['qps']['hnsw_search']:.1f} QPS ({med['hnsw_search'] * 1e3:.3f} ms) ({card})", flush=True)
     out["launches_by_shape"]["reopen_and_search"] = _shapes(kernel.by_shape)
-    step2 = kernel.launches
+    step2 = all_launches()
     count_main_path(f"{label}: reopen and search")
+    # phase 13 on this database: the search kernels against the host loop
+    # and their plain versions, each kernel timed; by_vecs in turns
+    out["search_kernels"] = search_kernel_checks("phase 13 on phase 6's database", reader, queries, card, slack=True,
+                                                 timing_efs=SCALE_EF)
+    out["search_turns"] = search_turns(label, reader, queries, ef, card, profile=True)
 
     # ---- step 3: append after the reopen → incremental build ----
-    kernel.reset_counts()
+    reset_counts()
     extra = bench_append(N_APPEND)
     writer = db.writer(dimensions=DIM, m=M, ef=EFC)
     _, out["seconds"]["append_add_items"] = timed(f"add_items of {N_APPEND} more", lambda: writer.add_items(range(N, N + N_APPEND), extra))
@@ -948,7 +1512,7 @@ def api_path(device, path: str, data, queries, card: str) -> dict:
         raise AssertionError(f"[{label}] self-hit {self_hit} below {SELF_HIT_BAR}")
     g.check_validity()
     out["launches_by_shape"]["append"] = _shapes(kernel.by_shape)
-    step3 = kernel.launches
+    step3 = all_launches()
     count_main_path(f"{label}: append")
     db.close()
     out.update(recall_at_10=recall, self_hit=self_hit, launches=step1 + step2 + step3,
@@ -1002,7 +1566,7 @@ def packed_path(device, data, queries, card: str) -> dict:
     out: dict = {"seconds": {}, "spans": {}, "recall_at_10": {}, "launches": {}}
 
     def recorded():
-        return tracing.record(fence=lambda: _sync(device), probe=lambda: kernel.launches)
+        return tracing.record(fence=lambda: _sync(device), probe=all_launches)
 
     def timed(what, fn):
         return _timed(label, card, device, what, fn)
@@ -1015,7 +1579,7 @@ def packed_path(device, data, queries, card: str) -> dict:
     # ---- (a) BQ cosine, 100k: add → bulk build → commit → search → reopen ----
     metric = distances.BQ_COSINE
     with tempfile.TemporaryDirectory() as path:
-        kernel.reset_counts()
+        reset_counts()
         db = Database(path, Metric.BQ_COSINE, map_size=API_MAP_SIZE)
         writer = db.writer(dimensions=DIM, m=M, ef=EFC)
         _, out["seconds"]["bq_add_items"] = timed(f"BQ cosine add_items of {N} x {DIM}", lambda: writer.add_items(range(N), data))
@@ -1034,7 +1598,7 @@ def packed_path(device, data, queries, card: str) -> dict:
         need_form("bq_build_and_search", count_main_path(f"{label}: BQ build and search"))
         db.close()
 
-        kernel.reset_counts()
+        reset_counts()
         db, out["seconds"]["bq_reopen"] = timed("Database reopen", lambda: Database(path, Metric.BQ_COSINE, map_size=API_MAP_SIZE))
         reader, out["seconds"]["bq_reader_open"] = timed("Reader.open (load + upload)", db.reader)
         after = reader.by_vecs(queries, n=K, ef_search=ef)
@@ -1071,7 +1635,7 @@ def packed_path(device, data, queries, card: str) -> dict:
     # ---- (b) HAMMING, 20k, insertion waves: the packed wave hop and flat candidates ----
     metric = distances.HAMMING
     with tempfile.TemporaryDirectory() as path:
-        kernel.reset_counts()
+        reset_counts()
         db = Database(path, Metric.HAMMING, map_size=API_MAP_SIZE)
         writer = db.writer(dimensions=DIM, m=M, ef=EFC)
         writer.add_items(range(N_HAMMING), data[:N_HAMMING])
@@ -1095,14 +1659,14 @@ def packed_path(device, data, queries, card: str) -> dict:
 
     # ---- (c) the migration: cosine → BQ cosine, links kept ----
     with tempfile.TemporaryDirectory() as path:
-        kernel.reset_counts()
+        reset_counts()
         db = Database(path, Metric.COSINE, map_size=API_MAP_SIZE)
         writer = db.writer(dimensions=DIM, m=M, ef=EFC)
         writer.add_items(range(N), data)
         _, out["seconds"]["migration_cosine_build"] = timed("cosine build before the migration", lambda: writer.builder(seed=42).build())
         db.commit_rw_txn()
         need_form("migration_cosine_build", count_main_path(f"{label}: cosine build before the migration"), "f32/dot")
-        kernel.reset_counts()
+        reset_counts()
         links_before = _n_links_records(db)
         writer2, out["seconds"]["prepare_changing_distance"] = timed(
             "prepare_changing_distance(Metric.BQ_COSINE)", lambda: writer.prepare_changing_distance(Metric.BQ_COSINE))
@@ -1145,7 +1709,7 @@ def tier_path(device, data, queries, card: str) -> dict:
     import torch
 
     from hannoy_tpu_torch import Database, Metric, flat_topk
-    from hannoy_tpu_torch.ops import beam_cuda, distances
+    from hannoy_tpu_torch.ops import beam_cuda, distances, search_cuda
 
     label = "phase 8: storage tiers"
     kernel = beam_cuda.KERNEL
@@ -1166,7 +1730,7 @@ def tier_path(device, data, queries, card: str) -> dict:
         cell = out[key] = {}
         metric = distances.by_name(name)
         with tempfile.TemporaryDirectory() as path:
-            kernel.reset_counts()
+            reset_counts()
             db = Database(path, Metric(name), map_size=API_MAP_SIZE, tier=tier)
             writer = db.writer(dimensions=DIM, m=M, ef=EFC)
             writer.add_items(range(N), data)
@@ -1219,15 +1783,19 @@ def tier_path(device, data, queries, card: str) -> dict:
             reader.assert_validity()
             forms = count_main_path(f"{label}: {key}")
             form = "/".join(beam_cuda.form_of(metric, want_dtype))
-            if set(forms) != {form}:
-                raise AssertionError(f"[{label}] {name} {tier} launched {forms}, expected only {form}")
-            cell["launches"] = forms[form]
+            searched = {f"{row}/{family}" for _, row, family in search_cuda.KERNELS.by_form}
+            if not set(forms) <= {form} or searched != {form}:
+                raise AssertionError(f"[{label}] {name} {tier} launched {forms} (gather) and {searched} (search), "
+                                     f"expected only {form}")
+            cell["launches"] = forms.get(form, 0)
+            cell["search_kernel_launches"] = dict(search_cuda.KERNELS.launches)
             print(f"[{label}] {key}: recall@10 at ef={ef} against the exact f32 top-10 {cell['recall_at_10']:.4f} "
                   f"(an exact scan of the tier's rows reaches {cell['exact_scan_recall_at_10']:.4f}), against the exact "
                   f"top-10 of the tier's rows {cell['recall_at_10_own_rows']:.4f}; "
                   f"Reader.by_vecs {cell['qps']:.1f} QPS (median of 5); a row takes {cell['row_bytes']} bytes, the Reader's "
                   f"whole upload holds {cell['reader_bytes'] / N:.1f} bytes per item ({cell['reader_bytes'] / 2**20:.1f} MiB, peak "
-                  f"{cell['reader_peak_bytes'] / 2**20:.1f} MiB); kernel launches {kernel.launches} ({form}) ({card})", flush=True)
+                  f"{cell['reader_peak_bytes'] / 2**20:.1f} MiB); kernel launches {kernel.launches} ({form}), search kernel "
+                  f"launches {cell['search_kernel_launches']} ({card})", flush=True)
             # the graph search must reach the bar on the rows it serves, and
             # against f32 the bar's share of what the tier's encoding itself
             # keeps of the f32 answer (an exact scan of its rows)
@@ -1235,6 +1803,10 @@ def tier_path(device, data, queries, card: str) -> dict:
             if cell["recall_at_10_own_rows"] < RECALL_BAR or cell["recall_at_10"] < floor:
                 raise AssertionError(f"[{label}] {name} {tier}: recall@10 {cell['recall_at_10_own_rows']} on its own rows "
                                      f"(bar {RECALL_BAR}), {cell['recall_at_10']} against f32 (floor {floor})")
+            # phase 13 on this database; the plain versions timed once per form
+            cell["search_kernels"] = search_kernel_checks(f"phase 13 on phase 8's {key}", reader, queries, card,
+                                                          plain_timing=form not in PLAIN_TIMED)
+            PLAIN_TIMED.add(form)
             del reader
             db.close()
     return out
@@ -1265,7 +1837,7 @@ def delete_filter_path(device, path: str, queries, card: str) -> dict:
     out: dict = {"seconds": {}, "spans": {}, "filtered": {}, "launches": {}}
 
     def recorded():
-        return tracing.record(fence=lambda: _sync(device), probe=lambda: kernel.launches)
+        return tracing.record(fence=lambda: _sync(device), probe=all_launches)
 
     def timed(what: str, fn):
         return _timed(label, card, device, what, fn)
@@ -1280,7 +1852,7 @@ def delete_filter_path(device, path: str, queries, card: str) -> dict:
         return float(np.mean([[d <= kth[b] for _, d in row] for b, row in enumerate(answers)]))
 
     # ---- (a) delete 2,000 (every entry point among them), add 2,000 ----
-    kernel.reset_counts()
+    reset_counts()
     db = Database(path, Metric.COSINE, map_size=API_MAP_SIZE)
     txn = db._env.read_txn()
     md = schema.Metadata.from_bytes(db._db.get(txn, schema.Key.metadata(0).to_bytes()))
@@ -1348,7 +1920,7 @@ def delete_filter_path(device, path: str, queries, card: str) -> dict:
     out["launches"]["delete_build_and_search"] = count_main_path(f"{label}: delete + add build and search")
     db.close()
 
-    kernel.reset_counts()
+    reset_counts()
     db, out["seconds"]["reopen"] = timed("Database reopen", lambda: Database(path, Metric.COSINE, map_size=API_MAP_SIZE))
     reader, out["seconds"]["reader_open"] = timed("Reader.open (load + upload)", db.reader)
     if reader.by_vecs(queries, n=K, ef_search=ef) != before:
@@ -1389,7 +1961,15 @@ def delete_filter_path(device, path: str, queries, card: str) -> dict:
     # ---- (c) by_items: 256 present items and 2 absent ----
     asked = np.random.default_rng(47).choice(live, N_QUERIES, replace=False)
     ask = asked.tolist() + doomed[:2].tolist()
+    from hannoy_tpu_torch.ops import search_cuda
+
+    before = kernel.launches, dict(search_cuda.KERNELS.launches)
     rows, out["seconds"]["by_items"] = timed(f"Reader.by_items of {len(ask)} items", lambda: reader.by_items(ask, n=K, ef_search=ef))
+    # an unfiltered by_items is one launch of the beam kernel, and no hop of the gather kernel
+    out["by_items_launches"] = {"gather": kernel.launches - before[0], **{
+        k: n - before[1].get(k, 0) for k, n in search_cuda.KERNELS.launches.items() if n != before[1].get(k, 0)}}
+    if out["by_items_launches"] != {"gather": 0, "beam_search": 1}:
+        raise AssertionError(f"[{label}] by_items did not take the beam kernel alone: {out['by_items_launches']}")
     if rows[-2:] != [None, None] or any(r is None for r in rows[:-2]):
         raise AssertionError(f"[{label}] by_items gave None where an item is, or an answer for an absent one")
     if any(item in [i for i, _ in row] for item, row in zip(asked.tolist(), rows)):
@@ -1405,11 +1985,11 @@ def delete_filter_path(device, path: str, queries, card: str) -> dict:
     out["launches"]["filtered_and_by_items"] = count_main_path(f"{label}: reopen, filtered search and by_items")
 
     # ---- (d) cancellation of searches and of a build ----
-    kernel.reset_counts()
+    reset_counts()
     t0 = time.perf_counter()
     out["cancel"] = cancel_checks(label, reader, queries, asked, cand_sets[CANCEL_FILTER_SHARE], set(doomed.tolist()), card)
     out["launches"]["cancelled_searches"] = count_main_path(f"{label}: cancelled searches")
-    kernel.reset_counts()
+    reset_counts()
     out["cancel"]["build"] = cancelled_build(label, db, reader, queries, live, card)
     out["launches"]["cancelled_build"] = count_main_path(f"{label}: cancelled build")
     out["seconds"]["cancellation"] = time.perf_counter() - t0
@@ -1568,7 +2148,7 @@ def sharded_path(device, path: str, card: str) -> dict:
     out: dict = {"seconds": {}, "spans": {}, "launches": {}, "device_bytes": {}}
 
     def recorded():
-        return tracing.record(fence=lambda: _sync(device), probe=lambda: kernel.launches)
+        return tracing.record(fence=lambda: _sync(device), probe=all_launches)
 
     def timed(what: str, fn):
         return _timed(label, card, device, what, fn)
@@ -1588,7 +2168,7 @@ def sharded_path(device, path: str, card: str) -> dict:
 
     data, queries = bench_data(np.random.default_rng(42), n)
     # ---- (1) add → sequential build (bulk per shard) → commit ----
-    kernel.reset_counts()
+    reset_counts()
     db = Database(path, Metric.COSINE, map_size=SHARDED_MAP_SIZE)
     writer = ShardedWriter(db, DIM, n_shards=S, m=M, ef=EFC, devices=devices)
     _, out["seconds"]["add_items"] = timed(f"add_items of {n} x {DIM} into {S} shards",
@@ -1610,7 +2190,7 @@ def sharded_path(device, path: str, card: str) -> dict:
     out["launches"]["sequential_build"] = count_main_path(f"{label}: sequential build")
 
     # ---- (2) ShardedReader → validity → search, recall, QPS ----
-    kernel.reset_counts()
+    reset_counts()
     torch.cuda.reset_peak_memory_stats(device)
     base = torch.cuda.memory_allocated(device)
     reader, out["seconds"]["reader_open"] = timed("ShardedReader open", lambda: ShardedReader(db, S, devices=devices))
@@ -1643,7 +2223,7 @@ def sharded_path(device, path: str, card: str) -> dict:
     out["launches"]["open_and_search"] = count_main_path(f"{label}: open and search")
 
     # ---- (3) append 2,000 and delete 400 (every entry point) → lockstep build ----
-    kernel.reset_counts()
+    reset_counts()
     eps = sorted({int(e) for r in reader._readers for e in r._metadata.entry_points})
     rest = np.setdiff1d(np.arange(n), eps)
     doomed = np.sort(np.concatenate([eps, np.random.default_rng(44).choice(rest, SHARDED_DELETE - len(eps), replace=False)]))
@@ -1674,7 +2254,7 @@ def sharded_path(device, path: str, card: str) -> dict:
     out["launches"]["lockstep_build"] = count_main_path(f"{label}: lockstep build")
 
     # ---- (4) a new ShardedReader: no deleted id, self-hit, recall ----
-    kernel.reset_counts()
+    reset_counts()
     reader, out["seconds"]["reader_reopen"] = timed("ShardedReader open after the lockstep build",
                                                     lambda: ShardedReader(db, S, devices=devices))
     if reader.n_items() != n + N_APPEND - SHARDED_DELETE:
@@ -1697,7 +2277,7 @@ def sharded_path(device, path: str, card: str) -> dict:
     out["launches"]["reopen_and_search"] = count_main_path(f"{label}: reopen and search")
 
     # ---- (5) a lockstep build cancelled at its 2nd check ----
-    kernel.reset_counts()
+    reset_counts()
     writer = ShardedWriter(db, DIM, n_shards=S, m=M, ef=EFC, devices=devices)
     writer.add_items(np.arange(n + N_APPEND, n + N_APPEND + 400), bench_append(400, seed=50, n_data=n))
     for i in np.random.default_rng(51).choice(np.setdiff1d(np.arange(n), doomed), 100, replace=False).tolist():
@@ -1721,9 +2301,13 @@ def sharded_path(device, path: str, card: str) -> dict:
     out["launches"]["cancelled_build"] = count_main_path(f"{label}: cancelled lockstep build")
     db.close()
     total = sum(sum(step.values()) for step in out["launches"].values())
-    print(f"[{label}] kernel launches {total}: {json.dumps(out['launches'])}", flush=True)
-    if min(sum(step.values()) for name, step in out["launches"].items() if name != "cancelled_build") == 0:
-        raise AssertionError(f"[{label}] a step launched no kernel: {out['launches']}")
+    out["search_kernel_launches"] = {name: STEP_LAUNCHES[f"{label}: {name.replace('_', ' ')}"]["search"]
+                                     for name in out["launches"] if name != "cancelled_build"}
+    print(f"[{label}] gather kernel launches {total}: {json.dumps(out['launches'])}; search kernel launches "
+          f"{json.dumps(out['search_kernel_launches'])}", flush=True)
+    if min(sum(step.values()) + sum(out["search_kernel_launches"][name].values())
+           for name, step in out["launches"].items() if name != "cancelled_build") == 0:
+        raise AssertionError(f"[{label}] a step launched no kernel: {out['launches']} {out['search_kernel_launches']}")
     return out
 
 
@@ -1756,7 +2340,7 @@ def option_build(device, data, top, label: str, name: str, card: str, **opts):
 
     q, qn, thresh = top
     ef = EF_SWEEP[-1]
-    beam_cuda.KERNEL.reset_counts()
+    reset_counts()
     g, stats, build_s, spans = timed_build(device, data, **opts)
     rec = {"build_s": build_s, "waves": stats.waves, "beam_iters": stats.beam_iters,
            "chained_waves": sum(1 for sp in spans if sp.name == "insert_wave" and sp.fields.get("chained")),
@@ -1765,7 +2349,7 @@ def option_build(device, data, top, label: str, name: str, card: str, **opts):
     count_main_path(f"{label}: {name} build")
     g.check_validity()
     dev = to_device(g, device, serve_only=True)
-    beam_cuda.KERNEL.reset_counts()
+    reset_counts()
     res = hnsw_search(dev, q, qn, ef, ef_upper=default_ef_upper(len(data), ef))
     count_main_path(f"{label}: {name} search")
     if res.dists.shape != (N_QUERIES, ef) or not bool(res.dists[:, :K].isfinite().all()):
@@ -1878,7 +2462,7 @@ def options_path(device, sharded_dir: str, sharded: dict, card: str) -> dict:
     S, n = N_SHARDS, N_SHARDED
     devices = [device] * S
     kernel = beam_cuda.KERNEL
-    kernel.reset_counts()
+    reset_counts()
     sdata, squeries = bench_data(np.random.default_rng(42), n)
     # the items phase 10 left: its data but the deleted, and its appended
     live = np.setdiff1d(np.arange(n), sharded["deleted"])
@@ -1899,7 +2483,7 @@ def options_path(device, sharded_dir: str, sharded: dict, card: str) -> dict:
         if not writer.del_item(int(i)):
             raise AssertionError(f"[{label}] item {i} was not there to delete")
     opts = BuildOptions(ef_construction=EFC, link_slack=SHARDED_SLACK)
-    with tracing.record(fence=lambda: _sync(device), probe=lambda: kernel.launches) as spans:
+    with tracing.record(fence=lambda: _sync(device), probe=all_launches) as spans:
         _, build_s = _timed(label, card, device, f"sharded lockstep build with link_slack={SHARDED_SLACK} "
                             f"(+{N_APPEND} / -{SHARDED_DELETE}, {len(eps)} entry points; fenced spans)",
                             lambda: writer.build(opts=opts))
@@ -1910,7 +2494,7 @@ def options_path(device, sharded_dir: str, sharded: dict, card: str) -> dict:
     db.commit_rw_txn()
     out["sharded"] = {"build_s": build_s, "spans": sp}
     out["sharded"]["launches"] = count_main_path(f"{label}: sharded lockstep build with slack")
-    kernel.reset_counts()
+    reset_counts()
     reader = ShardedReader(db, S, devices=devices)
     if reader.n_items() != len(ids) - SHARDED_DELETE + N_APPEND:
         raise AssertionError(f"[{label}] {reader.n_items()} items after the churn")
@@ -1970,7 +2554,7 @@ def scale_path(device, path: str, card: str) -> dict:
     out: dict = {"seconds": {}, "spans": {}, "launches": {}, "search": {}}
 
     def recorded():
-        return tracing.record(fence=lambda: _sync(device), probe=lambda: kernel.launches)
+        return tracing.record(fence=lambda: _sync(device), probe=all_launches)
 
     def timed(what: str, fn):
         return _timed(label, card, device, what, fn)
@@ -1984,13 +2568,13 @@ def scale_path(device, path: str, card: str) -> dict:
             SCALE_LAUNCHES[shape] = SCALE_LAUNCHES.get(shape, 0) + c
         out["launches"][step] = {"by_form": count_main_path(f"{label}: {step}"), "by_shape": _shapes(kernel.by_shape)}
         print(f"[{label}] {step}: kernel launches {kernel.launches} {_shapes(kernel.by_shape)}", flush=True)
-        kernel.reset_counts()
+        reset_counts()
 
     (data, queries), out["seconds"]["data"] = timed(f"bench_data of {n} x {DIM}",
                                                    lambda: bench_data(np.random.default_rng(42), n))
 
     # ---- (a) add → (b) build → (c) commit ----
-    kernel.reset_counts()
+    reset_counts()
     db = Database(path, Metric.COSINE, map_size=SCALE_MAP_SIZE)
     writer = db.writer(dimensions=DIM, m=M, ef=EFC_SCALE)
     _, out["seconds"]["add_items"] = timed(f"add_items of {n} x {DIM}", lambda: writer.add_items(range(n), data))
@@ -2034,9 +2618,13 @@ def scale_path(device, path: str, card: str) -> dict:
               f"{SCALE_QPS_CALLS} calls of {N_QUERIES} queries), pooled descent {widths} wide ({card})", flush=True)
         if widths != [SCALE_EF_UPPER]:
             raise AssertionError(f"[{label}] the search's pooled descent was {widths} wide, not {SCALE_EF_UPPER}")
-    out["search"][ef]["profiled"] = profiled(lambda: one_call(device, lambda: reader.by_vecs(queries, n=K, ef_search=ef)),
-                                             label, f"by_vecs ef={ef}")
     step_done("search")
+    # the host loop's answers (the same) and QPS in turns, and phase 13 on this database
+    for e in SCALE_EF:
+        out["search"][e]["turns"] = search_turns(label, reader, queries, e, card, profile=e == ef)
+    out["search"][ef]["profiled"] = out["search"][ef]["turns"]["kernels"]["profiled"]
+    out["search_kernels"] = search_kernel_checks("phase 13 on phase 12's database", reader, queries, card, slack=True,
+                                                 plain_timing=True, timing_efs=SCALE_EF)
     if out["search"][ef]["recall_at_10"] < RECALL_BAR:
         raise AssertionError(f"[{label}] recall@10 at ef={ef} {out['search'][ef]['recall_at_10']} below {RECALL_BAR}")
 
@@ -2134,17 +2722,21 @@ def main() -> int:
         raise AssertionError("f32 matrix products must run in full f32 (TF32 off)")
     device = torch.device("cuda", 0)
 
-    # phase 2: build the kernel
-    so = beam_cuda.KERNEL.build()
-    print(f"kernel built: {os.path.relpath(so)} in {beam_cuda.KERNEL.build_seconds:.2f} s", flush=True)
+    # phase 2: build the kernels, one nvcc a source, all started together
     import re
 
-    log = beam_cuda.KERNEL.build_log
-    regs = [int(n) for n in re.findall(r"Used (\d+) registers", log)]
-    spills = [int(n) for n in re.findall(r"(\d+) bytes spill", log)]
-    if regs:
-        print(f"  nvcc: {len(regs)} kernels, {min(regs)}-{max(regs)} registers a thread, "
-              f"{max(spills, default=0)} bytes of spills at most", flush=True)
+    from hannoy_tpu_torch.ops import search_cuda
+
+    t0 = time.perf_counter()
+    beam_cuda.build_all(beam_cuda.KERNEL, search_cuda.KERNELS)
+    print(f"kernels built in {time.perf_counter() - t0:.2f} s", flush=True)
+    for lib in (beam_cuda.KERNEL, search_cuda.KERNELS):
+        log = lib.build_log
+        regs = [int(n) for n in re.findall(r"Used (\d+) registers", log)]
+        spills = [int(n) for n in re.findall(r"(\d+) bytes spill", log)]
+        print(f"  {os.path.relpath(lib.library_path())} (nvcc {lib.build_seconds:.2f} s)"
+              + (f": {len(regs)} kernels, {min(regs)}-{max(regs)} registers a thread, "
+                 f"{max(spills, default=0)} bytes of spills at most" if regs else ""), flush=True)
     from hannoy_tpu_torch.store import native_env
 
     t0 = time.perf_counter()
@@ -2166,8 +2758,12 @@ def main() -> int:
         print(f"chip_smoke --kernel-only: {len(cases)} cases agree with their twins; phases 4-12 not run", flush=True)
         return 0
     torch.cuda.empty_cache()
+    edge = search_edge_cases(device, card)  # phase 13, the cases no other phase's database holds
+    lap("phase 13 (small cases)")
+    watch_searches()
     data, queries = bench_data(np.random.default_rng(42))
     waves = drive(device, data, queries, "phase 4: wave build", bulk=False)  # phase 4
+    waves["turns"] = build_turns(device, data, "phase 4: wave build", card, bulk=False)
     lap("phase 4")
     torch.cuda.empty_cache()
     default = drive(device, data, queries, "phase 5: default build", main_path=True)  # phase 5
@@ -2226,6 +2822,7 @@ def main() -> int:
         if MAIN_DESIGNS.get((row, other), 0) or not MAIN_DESIGNS.get((row, design), 0):
             raise AssertionError(f"the main path's {row} launches did not all go through the {design} design: {designs}")
 
+    search_calls = check_search_calls()
     # one entry per form; its headline is the timed case of the metric the
     # main path drives in that form, at the shape it launches most
     driven = {"dot": "cosine", "difference": "euclidean", "popcount": "binary quantized cosine"}
@@ -2258,11 +2855,16 @@ def main() -> int:
             "bound_by": head["bound_by"],
             "library_ms": None,  # no single PyTorch call gathers and reduces
         })
+    entries += search_entries()
     # everything measured, on one line of its own ahead of the closing
     # three (which stay short): every timed case and every path's record
     print("detail " + json.dumps({"cases": cases, "launch_floors": floors, "phase_seconds": phase_s, "paths": {
         "wave_build": waves, "default_build": default, "api_path": api, "packed_path": packed, "tier_path": tiers,
-        "delete_filter_path": deletes, "sharded_path": sharded, "options_path": options, "scale_path": scale}}))
+        "delete_filter_path": deletes, "sharded_path": sharded, "options_path": options, "scale_path": scale},
+        "search_kernels": {"cases": SEARCH_CASES, "edge_cases": edge, "calls": search_calls,
+                           "main_path_launches": {"/".join(k): n for k, n in sorted(MAIN_SEARCH.items())},
+                           "main_path_launches_by_level": {f"{k}/{level}": n
+                                                           for (k, level), n in sorted(MAIN_SEARCH_LEVELS.items())}}}))
     kernels = {"kernels": entries}
     print(card_line())
     print(json.dumps(kernels))

@@ -1214,7 +1214,8 @@ class Reader:
         """Batched per-item lookup (the reference loops reader.rs:809-894
         per item; here the batch rides one search).
 
-        Each present row seeds the layer-0 filtered beam at its own slot —
+        Each present row seeds the layer-0 beam (filtered when the builder
+        has candidates) at its own slot —
         no descent, the item already lives where the search starts — with
         the pool one wider than ``count``, so that dropping the item itself
         on the host (reader.rs:839-842) still leaves ``count`` results. A
@@ -1248,8 +1249,6 @@ class Reader:
             return out
 
         cand = self._candidate_mask(opt._candidates)
-        if cand is None:
-            cand = self._graph.valid_mask()
         ef = max(opt._ef, opt._count + 1)  # the item may take one pool entry
         max_iters = 2 * ef + 16
         latch = _Latch(cancel) if cancel is not None else None
@@ -1258,10 +1257,18 @@ class Reader:
                 out[b] = Searched([], True)
             return out
         with span("reader_search", queries=len(present), ef=ef):
-            res = _beam.beam_search_filtered(
-                self._dev, q, qn, sel[:, None], ef, torch.from_numpy(cand).to(device), max_iters=max_iters,
-                cancel=latch,
-            )
+            if cand is None:
+                # Without candidates the JAX package runs the filtered beam
+                # with every live item a candidate: its result pool then
+                # stays equal to its frontier, and its hop is the unfiltered
+                # beam's (link rows hold no repeated id), so the unfiltered
+                # beam gives its answers, on the card by the search kernel.
+                res = _beam.beam_search(self._dev, q, qn, sel[:, None], ef, max_iters=max_iters, cancel=latch)
+            else:
+                res = _beam.beam_search_filtered(
+                    self._dev, q, qn, sel[:, None], ef, torch.from_numpy(cand).to(device), max_iters=max_iters,
+                    cancel=latch,
+                )
             k = min(opt._count + 1, ef)
             dists, slots, active, iters = self._to_host(
                 res.dists[:, :k], res.slots[:, :k], res.active, res.iters.expand(len(present))

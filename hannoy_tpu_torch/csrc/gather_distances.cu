@@ -60,7 +60,10 @@
 //           landed, four independent sums a lane, so that the rows still
 //           in flight hide the reduction. Half of the int8 codes become
 //           floats without the quarter-rate conversion, so that both kinds
-//           of pipe work at once. This is the TPU kernel's structure
+//           of pipe work at once. The reduction of a row is
+//           row_distance.cuh's row_partial and warp_sum, which search.cu's
+//           kernels call too, so their distances have these bits. This is
+//           the TPU kernel's structure
 //           (start the copies of all of a block's rows, then wait and
 //           reduce) in Hopper's terms: a tile's rows are all in flight at
 //           once without holding registers, a pair's chain is two trips
@@ -97,7 +100,8 @@
 //
 // Built by hannoy_tpu_torch/ops/beam_cuda.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
-// and called through ctypes; gather_distances() returns cudaGetLastError().
+// (keyed by a hash of this file and the csrc/*.cuh headers) and called
+// through ctypes; gather_distances() returns cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -105,15 +109,11 @@
 
 #include <atomic>
 
+#include "row_distance.cuh"
+
 namespace {
 
-constexpr int kCosine = 0;
-constexpr int kEuclidean = 1;
-constexpr int kManhattan = 2;
-constexpr int kHamming = 3;
-constexpr int kBqCosine = 4;
-constexpr int kBqEuclidean = 5;
-constexpr int kBqManhattan = 6;
+using namespace rowdist;
 
 constexpr int kRowF32 = 0;
 constexpr int kRowBf16 = 1;
@@ -125,7 +125,6 @@ constexpr int kDesignStaged = 1;
 constexpr int kDesignGroup = 2;
 constexpr int kDesignPair = 3;
 
-constexpr float kEps = 1.1920929e-07f;  // f32::EPSILON
 constexpr int kWarpsPerBlock = 8;
 constexpr int kPackedGroup = 8;  // threads per (b, k) pair of packed rows
 constexpr int kPackedPairsPerBlock = kWarpsPerBlock * 32 / kPackedGroup;
@@ -136,115 +135,6 @@ constexpr int kPairThreads = 2;  // pair design: threads a (b, k) pair
 constexpr int kPairUnits = 4;  // pair design: 16-byte units of a row a thread holds at once
 constexpr int kPairBlock = 256;  // pair design: the most threads a block takes
 constexpr int kSms = 132;  // the H100's SMs: a pair launch spreads over at least this many blocks where it can
-
-template <int METRIC>
-__device__ __forceinline__ float step(float acc, float q, float r) {
-  if (METRIC == kCosine) return fmaf(q, r, acc);
-  const float d = q - r;
-  if (METRIC == kEuclidean) return fmaf(d, d, acc);
-  return acc + fabsf(d);
-}
-
-// The query element as the metric reads it: cosine on bf16 rows rounds it
-// to bf16 (round to nearest even, as a cast does); everything else as is.
-template <bool ROUND>
-__device__ __forceinline__ float query(float x) {
-  return ROUND ? __bfloat162float(__float2bfloat16_rn(x)) : x;
-}
-
-// The cosine epilogue: the distance from a dot product and qn * norm.
-__device__ __forceinline__ float cosine_distance(float dot, float denom) {
-  const float cosv = fminf(fmaxf(dot / fmaxf(denom, kEps), -1.f), 1.f);
-  return denom > kEps ? (1.f - cosv) * 0.5f : 0.f;
-}
-
-// One row type's view of a row: ELEMS elements per 16-byte load. For the
-// staged design, a row is read from shared memory in Units of UNIT_ELEMS
-// elements (8 bytes of int8 rows, so that a 768-wide row is 96 of them,
-// three for each lane of a warp); group(u, g, out) gives elements
-// 4g .. 4g+3 of a unit.
-template <typename ROW>
-struct RowTraits;
-
-// The 32-bit word i (0-3) of a 16-byte load.
-__device__ __forceinline__ uint32_t word(const uint4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-
-template <>
-struct RowTraits<float> {
-  static constexpr int ELEMS = 4;
-  static __device__ __forceinline__ float at(const float* r, int i) { return __ldg(r + i); }
-  static __device__ __forceinline__ void unpack(const uint4& v, float* out) {
-    out[0] = __uint_as_float(v.x);
-    out[1] = __uint_as_float(v.y);
-    out[2] = __uint_as_float(v.z);
-    out[3] = __uint_as_float(v.w);
-  }
-  using Unit = uint4;
-  static constexpr int UNIT_ELEMS = 4;
-  static __device__ __forceinline__ void group(const uint4& v, int, float* out) { unpack(v, out); }
-};
-
-template <>
-struct RowTraits<__nv_bfloat16> {
-  static constexpr int ELEMS = 8;
-  static __device__ __forceinline__ float at(const __nv_bfloat16* r, int i) {
-    // a bf16 is the upper half of the f32 of the same value
-    return __uint_as_float(static_cast<uint32_t>(__ldg(reinterpret_cast<const uint16_t*>(r) + i)) << 16);
-  }
-  static __device__ __forceinline__ void unpack(const uint4& v, float* out) {
-    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      out[2 * j] = __uint_as_float(w[j] << 16);
-      out[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
-    }
-  }
-  using Unit = uint4;
-  static constexpr int UNIT_ELEMS = 8;
-  static __device__ __forceinline__ void group(const uint4& v, int g, float* out) {
-    const uint32_t lo = word(v, 2 * g), hi = word(v, 2 * g + 1);
-    out[0] = __uint_as_float(lo << 16);
-    out[1] = __uint_as_float(lo & 0xffff0000u);
-    out[2] = __uint_as_float(hi << 16);
-    out[3] = __uint_as_float(hi & 0xffff0000u);
-  }
-};
-
-template <>
-struct RowTraits<int8_t> {
-  static constexpr int ELEMS = 16;
-  static __device__ __forceinline__ float at(const int8_t* r, int i) {
-    return static_cast<float>(__ldg(r + i));
-  }
-  static __device__ __forceinline__ void unpack(const uint4& v, float* out) {
-    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        out[4 * j + b] = static_cast<float>(static_cast<int8_t>((w[j] >> (8 * b)) & 0xffu));
-      }
-    }
-  }
-  // The int → float conversion runs at a quarter of the f32 rate, so only
-  // group 0 takes it; group 1 goes by the integer and f32 pipes, which
-  // work beside it: byte v ^ 0x80 = v + 128 becomes the low byte of the
-  // float 2^23 + v + 128, and subtracting 2^23 + 128 leaves v, exactly.
-  using Unit = uint2;
-  static constexpr int UNIT_ELEMS = 8;
-  static __device__ __forceinline__ void group(const uint2& v, int g, float* out) {
-    if (g == 0) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) out[e] = static_cast<float>(static_cast<int8_t>((v.x >> (8 * e)) & 0xffu));
-    } else {
-      const uint32_t biased = v.y ^ 0x80808080u;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) out[e] = __uint_as_float(__byte_perm(biased, 0x4b000000u, 0x7650u + e)) - 8388736.f;
-    }
-  }
-};
 
 // f32 / bf16 / int8 rows: one warp per (b, k).
 template <typename ROW, int METRIC, bool VEC, bool SCALE>
@@ -349,13 +239,6 @@ __device__ __forceinline__ void barrier_wait(uint64_t* bar) {
   }
 }
 
-// A unit with its two halves swapped when `swap` (groups 0 and 1 of an
-// 8-element unit).
-__device__ __forceinline__ uint4 swap_halves(uint4 v, bool swap) {
-  return swap ? make_uint4(v.z, v.w, v.x, v.y) : v;
-}
-__device__ __forceinline__ uint2 swap_halves(uint2 v, bool swap) { return swap ? make_uint2(v.y, v.x) : v; }
-
 template <int N>
 __device__ __forceinline__ void copies_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
@@ -390,7 +273,6 @@ gather_staged_kernel(const ROW* __restrict__ vectors,
   using Unit = typename T::Unit;
   constexpr bool RQ = METRIC == kCosine && sizeof(ROW) == 2;
   constexpr bool HEADER = METRIC == kCosine || SCALE;
-  constexpr int GROUPS = T::UNIT_ELEMS / 4;  // float4s of query per unit of row
   constexpr int R = kRowsPerWarp;
   extern __shared__ __align__(128) unsigned char staged[];
   __shared__ uint64_t q_bar;
@@ -441,9 +323,6 @@ gather_staged_kernel(const ROW* __restrict__ vectors,
   }
   if (mine <= 0) return;
 
-  // A lane reads its unit's query float4s starting at group `swap`, so
-  // that the 8 lanes of a quarter-warp hit 8 different 16-byte bank groups.
-  const bool swap = GROUPS == 2 && ((lane >> 2) & 1);
   const float4* q4 = reinterpret_cast<const float4*>(sq);
   const int units = static_cast<int>(row_bytes / sizeof(Unit));
   float part[R];
@@ -458,33 +337,12 @@ gather_staged_kernel(const ROW* __restrict__ vectors,
       default: copies_wait<0>(); break;
     }
     __syncwarp();
+    // a row past the store is read all the same (its result is NaN)
     const Unit* ru = reinterpret_cast<const Unit*>(staged + q_bytes + (base + j) * row_bytes);
     const float scale = SCALE ? __shfl_sync(0xffffffffu, head, j) : 1.f;
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int i = lane; i < units; i += 32) {
-      // a row past the store is read all the same (its result is NaN)
-      const Unit u = swap_halves(ru[i], swap);
-#pragma unroll
-      for (int g = 0; g < GROUPS; ++g) {
-        const float4 a = q4[i * GROUPS + (g ^ static_cast<int>(swap))];
-        float c[4];
-        T::group(u, g, c);
-        const float av[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          // __fmul_rn: the product is rounded before the subtraction, as
-          // in the warp design
-          acc[e] = step<METRIC>(acc[e], av[e], SCALE ? __fmul_rn(c[e], scale) : c[e]);
-        }
-      }
-    }
-    part[j] = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+    part[j] = row_partial<ROW, METRIC, SCALE, 1, false>(ru, q4, units, lane, scale);
   }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-    for (int j = 0; j < R; ++j) part[j] += __shfl_xor_sync(0xffffffffu, part[j], off);
-  }
+  warp_sum(part);  // the rows' shuffles run once, for all of them together
   // lane j < mine writes row j
   float res = part[0];
 #pragma unroll
@@ -640,30 +498,6 @@ cudaError_t launch_warp(const Args& a) {
         v, a.norms, q, a.qn, a.idx, a.out, a.n_rows, a.dim, a.n_pairs, a.k);
   }
   return cudaSuccess;
-}
-
-// Lets `kernel` take the card's whole opt-in shared memory a block (above
-// the 48 KB default) on the current device. cudaFuncSetAttribute applies
-// to the current device only, so `done` keeps one bit per device id for
-// which it was set; every call sets the same value, so threads that race
-// here agree. Devices past id 63 set it on every call.
-template <typename KERNEL>
-cudaError_t allow_opt_in_shared(KERNEL kernel, std::atomic<uint64_t>& done) {
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  const uint64_t bit = device < 64 ? uint64_t{1} << device : 0;
-  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
-  int opt_in = 0;
-  err = cudaDeviceGetAttribute(&opt_in, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (err != cudaSuccess) return err;
-  cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             opt_in - static_cast<int>(attr.sharedSizeBytes));
-  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
-  return err;
 }
 
 // The staged design needs whole 16-byte rows from aligned bases (vec).

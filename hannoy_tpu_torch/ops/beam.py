@@ -19,13 +19,23 @@ Counterpart of the unfiltered half of ``hannoy_tpu/ops/beam.py``:
   unfiltered (upper layers route, they do not filter) and runs it at
   layer 0; the by-item search seeds it at the item's own slot.
 
-Every hop's distances go through ``beam_cuda.gathered_distances``: the
-hand-written kernel on CUDA tensors, its plain twin on CPU tensors.
+``beam_search`` and ``greedy_descend`` choose how their loop runs by one
+fixed rule, ``search_cuda.search_design_of``: on CUDA tensors of dense
+rows that the gather kernel's staged design serves, with one entry
+expanded a hop, every link of a row and no tail allowance, the loop is one
+hand-written kernel for the whole batch (``csrc/search.cu``: the JAX
+package's jitted loops as device programs), and a launch that fails
+raises; everything else, CPU tensors among it, takes the host loop
+(``beam_search_loop``, ``greedy_descend_loop``), which stays the JAX-parity
+code. The kernels give the host loop's answers bit for bit.
 
-JAX's ``lax.while_loop`` becomes ``_while_loop``: the loop condition stays
-on the device as a ``go`` flag that gates each state update, so a row the
-JAX loop would have stopped is never expanded, and the host reads the flag
-only every ``SYNC_EVERY`` iterations.
+In the host loop every hop's distances go through
+``beam_cuda.gathered_distances``: the hand-written gather kernel on CUDA
+tensors, its plain twin on CPU tensors. JAX's ``lax.while_loop`` becomes
+``_while_loop``: the loop condition stays on the device as a ``go`` flag
+that gates each state update, so a row the JAX loop would have stopped is
+never expanded, and the host reads the flag only every ``SYNC_EVERY``
+iterations.
 
 Cancellation rides those reads. The JAX package runs a cancellable search
 in chunks of a jitted loop with its own runners
@@ -33,7 +43,9 @@ in chunks of a jitted loop with its own runners
 optional ``cancel`` closure, called where the host reads the flag anyway:
 a search's closure returns True to stop the loop there (the pools so far
 are the partial answer), a build's raises ``BuildCancelled``. Without one
-the loops issue no extra host sync.
+the loops issue no extra host sync. The kernels take a cancel the same
+way: they run in launches of ``SYNC_EVERY`` hops with the check between
+them, so that it falls at the same hop counts.
 """
 
 from __future__ import annotations
@@ -43,7 +55,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from ..models.hnsw import DeviceGraph
-from . import beam_cuda, distances, topk
+from . import beam_cuda, distances, search_cuda, topk
 from .topk import INF, NO_ID
 
 #: iterations between host reads of a device-side loop flag
@@ -143,7 +155,37 @@ def greedy_descend(
     greedily from the best entry point; returns the best slot per query
     → [B]. ``node_ok`` (default ``g.valid``) gates which slots the walk
     may settle on — builders pass exists-and-not-deleted. A cancelled
-    walk returns where it stands."""
+    walk returns where it stands. The kernel or the host loop, by
+    ``search_cuda.search_design_of``."""
+    if _on_kernel(g):
+        return search_cuda.greedy_descend_kernel(
+            g, q, qn, from_level, to_level, max_steps_per_level, g.valid if node_ok is None else node_ok, cancel,
+            SYNC_EVERY,
+        )
+    return greedy_descend_loop(g, q, qn, from_level, to_level, max_steps_per_level, node_ok, cancel)
+
+
+def _on_kernel(g: DeviceGraph, expand: int = 1, traverse_k: Optional[int] = None, tail_allow: int = 0,
+               ef: int = 1, width: int = 0) -> bool:
+    """Does a search loop on ``g`` with these settings take the kernels?"""
+    v = g.vectors
+    return search_cuda.search_design_of(
+        v.device.type, v.dtype, g.metric, v.shape[1], v.data_ptr() % 16 == 0, expand, traverse_k, tail_allow,
+        ef=ef, width=width,
+    ) == "kernel"
+
+
+def greedy_descend_loop(
+    g: DeviceGraph,
+    q: torch.Tensor,  # [B, D]
+    qn: torch.Tensor,  # [B]
+    from_level: int,
+    to_level: int,
+    max_steps_per_level: int = 128,
+    node_ok: Optional[torch.Tensor] = None,
+    cancel: Cancel = None,
+) -> torch.Tensor:
+    """``greedy_descend`` by the host loop, on any device."""
     if node_ok is None:
         node_ok = g.valid
     eps = g.entry_slots[None, :].expand(q.shape[0], -1)
@@ -289,7 +331,37 @@ def beam_search(
     are still active (0 = the reference's termination); builders size the
     allowance from the real item count of a wave.
     ``cancel``: see ``_while_loop``; a cancelled beam returns its pool.
+    The kernel or the host loop, by ``search_cuda.search_design_of``.
     """
+    if tail_allow is None:
+        tail_allow = int(tail_frac * q.shape[0])
+    width = g.m0 if level == 0 else g.upper_links.shape[-1]
+    cut = traverse_k if traverse_k is not None and traverse_k < width else None
+    if _on_kernel(g, expand, cut, tail_allow, ef, width):  # expand == 1
+        return BeamResult(*search_cuda.beam_search_kernel(
+            g, q, qn, start, ef, 2 * ef + 16 if max_iters is None else max_iters,
+            g.valid if node_ok is None else node_ok, level, cancel, SYNC_EVERY,
+        ))
+    return beam_search_loop(g, q, qn, start, ef, max_iters, node_ok, level, expand, traverse_k, tail_allow=tail_allow,
+                            cancel=cancel)
+
+
+def beam_search_loop(
+    g: DeviceGraph,
+    q: torch.Tensor,  # [B, D]
+    qn: torch.Tensor,  # [B]
+    start: torch.Tensor,  # [B, S] seed slots (-1 padded)
+    ef: int,
+    max_iters: Optional[int] = None,
+    node_ok: Optional[torch.Tensor] = None,
+    level: int = 0,
+    expand: int = 1,
+    traverse_k: Optional[int] = None,
+    tail_frac: float = 0.0,
+    tail_allow: Optional[int] = None,
+    cancel: Cancel = None,
+) -> BeamResult:
+    """``beam_search`` by the host loop, on any device."""
     if max_iters is None:
         max_iters = (2 * ef + 16 + expand - 1) // expand
     if node_ok is None:

@@ -21,8 +21,11 @@ packed rows that are whole 16-byte units from aligned bases, "group" for
 the other packed launches), and a launch the card refuses raises.
 
 The kernel is built at first use with ``nvcc`` for ``sm_90a`` into
-``hannoy_tpu_torch/_build/``, keyed by a hash of the source, and loaded
-with ``ctypes``. ``KERNEL.launches`` counts the launches,
+``hannoy_tpu_torch/_build/``, keyed by a hash of the source and of the
+headers in ``csrc/`` (``row_distance.cuh`` holds the reduction of a row,
+which ``csrc/search.cu`` shares), and loaded with ``ctypes``
+(``CudaLibrary``, which ``search_cuda`` builds its library with too).
+``KERNEL.launches`` counts the launches,
 ``KERNEL.by_shape`` counts them per ``(B, K)``, ``KERNEL.by_form`` per
 form: ``(row type, family)`` with row type ``f32`` / ``bf16`` / ``int8`` /
 ``packed`` and family ``dot`` (cosine), ``difference`` (euclidean,
@@ -78,56 +81,94 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the gather-distance kernel needs the CUDA toolkit")
 
 
-class GatherKernel:
-    """The compiled library, loaded once, and its launch count."""
+class CudaLibrary:
+    """A library of the port's CUDA kernels: one ``csrc/*.cu`` source built
+    at first use with ``nvcc`` into ``BUILD_DIR``, keyed by a hash of that
+    source and of every ``csrc/*.cuh`` header (so that a header edit
+    rebuilds it), and loaded with ``ctypes``. ``bind`` sets the C entries'
+    argument types on the loaded library."""
+
+    def __init__(self, source: Path, bind) -> None:
+        self.source = source
+        self.bind = bind
+        self.lib = None
+        #: nvcc's output of the last build (``-Xptxas -v``), "" if cached
+        self.build_log = ""
+        self.build_seconds = 0.0
+
+    def library_path(self) -> Path:
+        digest = hashlib.sha256()
+        for path in (self.source, *sorted(self.source.parent.glob("*.cuh"))):
+            digest.update(path.name.encode())
+            digest.update(path.read_bytes())
+        return BUILD_DIR / f"{self.source.stem}_{digest.hexdigest()[:16]}.so"
+
+    def start_build(self):
+        """Start ``nvcc`` unless this version is already built → a handle
+        for ``finish_build`` (None when there is nothing to wait for)."""
+        so = self.library_path()
+        if so.exists():
+            return None
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+        proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        return proc, tmp, so, time.perf_counter()
+
+    def finish_build(self, handle) -> Path:
+        if handle is None:
+            return self.library_path()
+        proc, tmp, so, t0 = handle
+        out, _ = proc.communicate()
+        self.build_seconds = time.perf_counter() - t0
+        self.build_log = out
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {self.source.name} ({proc.returncode}):\n{self.build_log}")
+        os.replace(tmp, so)
+        return so
+
+    def build(self) -> Path:
+        """Compile the source unless this version is already built."""
+        return self.finish_build(self.start_build())
+
+    def load(self):
+        if self.lib is None:
+            lib = ctypes.CDLL(str(self.build()))
+            self.bind(lib)
+            self.lib = lib
+        return self.lib
+
+
+def build_all(*libraries: CudaLibrary) -> list[Path]:
+    """Build the libraries at once, one ``nvcc`` each, all started
+    together → their paths."""
+    handles = [lib.start_build() for lib in libraries]
+    return [lib.finish_build(h) for lib, h in zip(libraries, handles)]
+
+
+def _bind_gather(lib) -> None:
+    fn = lib.gather_distances
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+
+class GatherKernel(CudaLibrary):
+    """The gather-distance library and its launch counts."""
 
     def __init__(self) -> None:
-        self.lib = None
+        super().__init__(SOURCE, _bind_gather)
         self.launches = 0
         self.by_shape: dict[tuple[int, int], int] = {}
         self.by_form: dict[tuple[str, str], int] = {}
         self.by_design: dict[tuple[str, str], int] = {}
-        #: nvcc's output of the last build (``-Xptxas -v``), "" if cached
-        self.build_log = ""
-        self.build_seconds = 0.0
 
     def reset_counts(self) -> None:
         self.launches = 0
         self.by_shape = {}
         self.by_form = {}
         self.by_design = {}
-
-    def library_path(self) -> Path:
-        digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-        return BUILD_DIR / f"gather_distances_{digest}.so"
-
-    def build(self) -> Path:
-        """Compile the source unless this version is already built."""
-        so = self.library_path()
-        if so.exists():
-            return so
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-        t0 = time.perf_counter()
-        res = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-            capture_output=True, text=True,
-        )
-        self.build_seconds = time.perf_counter() - t0
-        self.build_log = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{self.build_log}")
-        os.replace(tmp, so)
-        return so
-
-    def load(self):
-        if self.lib is None:
-            lib = ctypes.CDLL(str(self.build()))
-            fn = lib.gather_distances
-            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            self.lib = lib
-        return self.lib
 
 
 KERNEL = GatherKernel()

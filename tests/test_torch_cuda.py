@@ -18,9 +18,15 @@ import torch
 from hannoy_tpu_torch import Database, Metric
 from hannoy_tpu_torch.build import builder
 from hannoy_tpu_torch.models import hnsw
-from hannoy_tpu_torch.ops import beam, beam_cuda, distances
+from hannoy_tpu_torch.ops import beam, beam_cuda, distances, search_cuda
 
 pytestmark = pytest.mark.cuda
+
+
+def _launches() -> int:
+    """Launches of the port's kernels so far: the gather kernel's and the
+    search kernels' (a build's beams on the card run in the latter)."""
+    return beam_cuda.KERNEL.launches + sum(search_cuda.KERNELS.launches.values())
 
 
 @pytest.fixture
@@ -390,10 +396,10 @@ def test_build_and_search_on_cuda_match_cpu(cuda):
             g.alloc_slot(i)
         g.vectors[:n] = data
         g.norms[:n] = distances.np_norms(distances.COSINE, data)
-        before = beam_cuda.KERNEL.launches
+        before = _launches()
         builder.build_graph(g, np.arange(n), np.empty(0, np.int64),
                             builder.BuildOptions(ef_construction=32, wave_size=128, bulk=False), device=dev)
-        assert (beam_cuda.KERNEL.launches > before) == (dev != "cpu")
+        assert (_launches() > before) == (dev != "cpu")
         g.check_validity()
         graphs[str(dev)] = g
     a, b = graphs["cpu"], graphs["cuda"]
@@ -416,10 +422,10 @@ def _bulk_built(dev, data):
         g.alloc_slot(i)
     g.vectors[:n] = data
     g.norms[:n] = distances.np_norms(distances.COSINE, data)
-    before = beam_cuda.KERNEL.launches
+    before = _launches()
     builder.build_graph(g, np.arange(n), np.empty(0, np.int64),
                         builder.BuildOptions(ef_construction=32, bulk=True), device=dev)
-    assert (beam_cuda.KERNEL.launches > before) == (dev != "cpu")
+    assert (_launches() > before) == (dev != "cpu")
     g.check_validity()
     return g
 
@@ -484,7 +490,7 @@ def test_api_path_on_cuda_matches_cpu(cuda, tmp_path):
     n = len(data)
     links, answers = {}, {}
     for name, kw in (("cpu", {"device": "cpu"}), ("cuda", {})):
-        before = beam_cuda.KERNEL.launches
+        before = _launches()
         db = Database(tmp_path / name, Metric.COSINE, **kw)
         assert db.device.type == name
         w = db.writer(32, m=8, ef=32)
@@ -508,7 +514,7 @@ def test_api_path_on_cuda_matches_cpu(cuda, tmp_path):
         answers[name] = r.by_vecs(queries, n=10, ef_search=64)
         links[name] = {k: v for k, v in db._db.prefix_iter(db._env.read_txn(), b"") if k[2] == 2}
         db.close()
-        assert (beam_cuda.KERNEL.launches > before) == (name == "cuda")
+        assert (_launches() > before) == (name == "cuda")
     assert links["cpu"].keys() == links["cuda"].keys()
     share = float(np.mean([links["cpu"][k] == links["cuda"][k] for k in links["cpu"]]))
     print(f"API path cuda vs cpu: identical links records {share:.4f} of {len(links['cpu'])}")
@@ -705,3 +711,207 @@ def test_sharded_search_and_lockstep_build_on_cuda_match_cpu(cuda, tmp_path):
     for (g, c), eq in zip(zip(answers["cuda"], answers["cpu"]), same):
         if eq:
             np.testing.assert_allclose([x for _, x in g], [x for _, x in c], rtol=1e-5, atol=1e-5)
+
+
+# ---- the search kernels (csrc/search.cu) against the host loop and their plain versions ----
+
+
+def _search_graph(cuda, name="cosine", tier="raw", n=3000, d=64, slack=0, seed=21):
+    """A wave build on the CPU (m 8, m0 16), uploaded to the card in
+    ``tier`` with ``slack`` extra layer-0 columns → (host graph, device
+    graph, queries and their norms on the card)."""
+    metric = distances.by_name(name)
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((max(1, n // 256), d)).astype(np.float32) * 4.0
+    data = (centers[rng.integers(0, len(centers), n)] + rng.standard_normal((n, d))).astype(np.float32)
+    queries = (centers[rng.integers(0, len(centers), 96)] + rng.standard_normal((96, d))).astype(np.float32)
+    g = hnsw.HostGraph.empty(metric, d, 8, 16, capacity=hnsw.slot_capacity(n))
+    for i in range(n):
+        g.alloc_slot(i)
+    g.vectors[:n] = data
+    g.norms[:n] = distances.np_norms(metric, data)
+    builder.build_graph(g, np.arange(n), np.empty(0, np.int64),
+                        builder.BuildOptions(ef_construction=32, wave_size=256, bulk=False), device="cpu")
+    dev = hnsw.to_device(g, cuda, tier=tier, link_slack=slack)
+    q = torch.from_numpy(queries).to(cuda)
+    qn = torch.from_numpy(distances.np_norms(metric, queries)).to(cuda)
+    return g, dev, q, qn
+
+
+def _bits(res):
+    return res.slots.cpu(), res.dists.cpu().view(torch.int32), int(res.iters), res.active.cpu()
+
+
+def _assert_same(a, b):
+    for x, y in zip(_bits(a), _bits(b)):
+        assert (x == y) if isinstance(x, int) else torch.equal(x, y)
+
+
+def _host_search(monkeypatch, fn):
+    """``fn()`` with the searches' loops on the host (``beam_search_loop``,
+    ``greedy_descend_loop``)."""
+    with monkeypatch.context() as m:
+        m.setattr(beam, "beam_search", beam.beam_search_loop)
+        m.setattr(beam, "greedy_descend", beam.greedy_descend_loop)
+        return fn()
+
+
+def _check_search(monkeypatch, dev, q, qn, ef, ef_upper=1, rows=None, twin=True):
+    """``hnsw_search`` by the kernels against the host loop on the card and
+    the plain versions (on ``rows`` of the batch where given), bit for
+    bit, and (``twin``) against the plain versions with the plain twin's
+    distances (99% of slots, distances within 1e-5 relative)."""
+    search_cuda.KERNELS.reset_counts()
+    beam_cuda.KERNEL.reset_counts()
+    got = beam.hnsw_search(dev, q, qn, ef, ef_upper=ef_upper)
+    torch.cuda.synchronize()
+    launches = dict(search_cuda.KERNELS.launches)
+    assert beam_cuda.KERNEL.launches == 0, "a hop of the search launched the gather kernel"
+    assert launches.get("beam_search", 0) == (2 if ef_upper > 1 and dev.max_level >= 1 else 1)
+    assert launches.get("greedy_descend", 0) == (1 if dev.max_level >= (2 if ef_upper > 1 else 1) else 0)
+    _assert_same(got, _host_search(monkeypatch, lambda: beam.hnsw_search(dev, q, qn, ef, ef_upper=ef_upper)))
+    sel = slice(None) if rows is None else slice(0, rows)
+    part = beam.hnsw_search(dev, q[sel], qn[sel], ef, ef_upper=ef_upper)
+    _assert_same(part, search_cuda.hnsw_search_rowwise(dev, q[sel], qn[sel], ef, ef_upper=ef_upper))
+    if not twin:
+        return got
+    plain = search_cuda.hnsw_search_rowwise(dev, q[sel], qn[sel], ef, ef_upper=ef_upper, plain=True)
+    same = (plain.slots == part.slots) & (part.slots >= 0)
+    assert float((plain.slots == part.slots).float().mean()) >= 0.99
+    torch.testing.assert_close(part.dists[same], plain.dists[same], rtol=1e-5, atol=1e-5)
+    return got
+
+
+@pytest.mark.parametrize("tier", ["raw", "bf16", "int8"])
+@pytest.mark.parametrize("name", ["cosine", "euclidean", "manhattan"])
+def test_search_kernels_match_host_loop(cuda, monkeypatch, name, tier):
+    _, dev, q, qn = _search_graph(cuda, name, tier)
+    assert search_cuda.search_design_of("cuda", dev.vectors.dtype, dev.metric, dev.vectors.shape[1], True) == "kernel"
+    for ef, ef_upper in ((1, 1), (10, 8), (48, 1), (48, 8)):
+        got = _check_search(monkeypatch, dev, q, qn, ef, ef_upper, rows=24)
+        assert got.slots.shape == (96, ef) and bool((got.slots[:, 0] >= 0).all())
+
+
+def nan_walk_rows(dev) -> list[int]:
+    """Slots to fill with NaN so that searches meet them: each entry point's
+    first link at the highest level it has one, and every 37th slot."""
+    top = dev.max_level
+    entries = [int(e) for e in dev.entry_slots if e >= 0]
+    rows = [dev.upper_links[lv - 1][int(dev.slot_rows[lv - 1][e])] for e in entries for lv in range(top, 0, -1)]
+    return sorted({int(r[r >= 0][0]) for r in rows if bool((r >= 0).any())}) + list(range(0, dev.capacity, 37))
+
+
+@pytest.mark.parametrize("case", ["one_row", "ef_past_reach", "link_slack", "ef_512", "nan_rows"])
+def test_search_kernels_edge_cases(cuda, monkeypatch, case):
+    """A one-row store; ef larger than the items (a pool that never fills);
+    layer-0 rows wider than m0 (slack columns of -1); ef 512; euclidean
+    rows that hold NaN on the walks and at an entry point (the greedy
+    descent takes a NaN first, as ``torch.argmin`` does; no pool keeps one;
+    under cosine the kernels' epilogue clamps a NaN to distance 1)."""
+    if case == "one_row":
+        g = hnsw.HostGraph.empty(distances.COSINE, 64, 8, 16, capacity=hnsw.slot_capacity(1))
+        g.alloc_slot(0)
+        g.vectors[0] = np.random.default_rng(1).standard_normal(64).astype(np.float32)
+        g.norms[:1] = distances.np_norms(distances.COSINE, g.vectors[:1])
+        builder.build_graph(g, np.arange(1), np.empty(0, np.int64), builder.BuildOptions(bulk=False), device="cpu")
+        dev = hnsw.to_device(g, cuda)
+        qs = np.random.default_rng(2).standard_normal((5, 64)).astype(np.float32)
+        q, qn = torch.from_numpy(qs).to(cuda), torch.from_numpy(distances.np_norms(distances.COSINE, qs)).to(cuda)
+        got = _check_search(monkeypatch, dev, q, qn, 10)
+        assert bool((got.slots[:, 0] == 0).all()) and bool((got.slots[:, 1:] == -1).all())
+    elif case == "ef_past_reach":
+        _, dev, q, qn = _search_graph(cuda, n=40)
+        got = _check_search(monkeypatch, dev, q, qn, 64, 8)
+        assert int((got.slots[0] >= 0).sum()) == 40 and bool(torch.isinf(got.dists[:, 40:]).all())
+    elif case == "link_slack":
+        _, dev, q, qn = _search_graph(cuda, "euclidean", slack=8)
+        assert dev.links0.shape[1] == 24
+        _check_search(monkeypatch, dev, q, qn, 48, 8, rows=24)
+    elif case == "ef_512":
+        _, dev, q, qn = _search_graph(cuda)
+        _check_search(monkeypatch, dev, q, qn, 512, 8, rows=8)
+    else:
+        _, dev, q, qn = _search_graph(cuda, "euclidean")
+        dev.vectors[torch.tensor(nan_walk_rows(dev), device=cuda)] = float("nan")
+        for ef_upper in (1, 8):
+            # (the plain twin's other rounding takes other turns at NaN rows:
+            # only the bit-for-bit checks apply here)
+            got = _check_search(monkeypatch, dev, q, qn, 48, ef_upper, rows=24, twin=False)
+            assert not bool(torch.isnan(got.dists).any())
+        dev.vectors[int(dev.entry_slots[dev.entry_slots >= 0][-1])] = float("nan")
+        entry = next(int(e) for e in dev.entry_slots if e >= 0 and bool(torch.isnan(dev.vectors[e]).any()))
+        cur = beam.greedy_descend(dev, q, qn, dev.max_level, 1)
+        assert torch.equal(cur, beam.greedy_descend_loop(dev, q, qn, dev.max_level, 1))
+        assert bool((cur == entry).all())
+        assert torch.equal(cur, search_cuda.greedy_descend_rowwise(dev, q, qn, dev.max_level, 1))
+
+
+@pytest.mark.parametrize("fire_at", [1, 2, 3])
+def test_search_kernels_cancel_at_the_host_loops_checks(cuda, fire_at):
+    """A cancel that fires at the k-th check: the kernels' launches of
+    SYNC_EVERY hops stop where the host loop stops, with its pools."""
+    _, dev, q, qn = _search_graph(cuda)
+
+    def firing():
+        calls = []
+
+        def cancel():
+            calls.append(1)
+            return len(calls) >= fire_at
+        return cancel, calls
+
+    cancel, calls = firing()
+    got = beam.beam_search(dev, q, qn, dev.entry_slots[None, :].expand(q.shape[0], -1), 48, cancel=cancel)
+    host_cancel, host_calls = firing()
+    want = beam.beam_search_loop(dev, q, qn, dev.entry_slots[None, :].expand(q.shape[0], -1), 48, cancel=host_cancel)
+    assert len(calls) == len(host_calls) == fire_at
+    _assert_same(got, want)
+    cancel, calls = firing()
+    cur = beam.greedy_descend(dev, q, qn, dev.max_level, 1, cancel=cancel)
+    host_cancel, host_calls = firing()
+    assert torch.equal(cur, beam.greedy_descend_loop(dev, q, qn, dev.max_level, 1, cancel=host_cancel))
+    assert len(calls) == len(host_calls)
+
+
+@pytest.mark.parametrize("tier", ["raw", "bf16", "int8"])
+def test_insertion_seeds_by_the_kernels(cuda, monkeypatch, tier):
+    """``descend_for_slots`` (a build's seeds, its queries rows of the
+    store) by the kernels against the host loop, at ef_upper 1 and 8."""
+    _, dev, _, _ = _search_graph(cuda, "euclidean", tier)
+    wave = torch.arange(0, 3000, 7, dtype=torch.int32, device=cuda)
+    for ef_upper in (1, 8):
+        search_cuda.KERNELS.reset_counts()
+        got = beam.descend_for_slots(dev, wave, dev.max_level, 1, ef_upper=ef_upper)
+        assert sum(search_cuda.KERNELS.launches.values()) >= 1
+        want = _host_search(monkeypatch, lambda: beam.descend_for_slots(dev, wave, dev.max_level, 1, ef_upper=ef_upper))
+        assert torch.equal(got, want)
+
+
+def test_reader_by_vecs_through_the_kernels(cuda, tmp_path, monkeypatch):
+    """``Reader.by_vecs`` and an unfiltered ``by_items`` on the card: the
+    kernels answer (at most three launches, none of the gather kernel) and
+    the answers are the host loop's, id for id and distance for distance."""
+    data, queries = _clustered()
+    db = Database(tmp_path / "db", Metric.COSINE)
+    w = db.writer(32, m=8, ef=32)
+    w.add_items(range(len(data)), data)
+    w.builder(seed=42).build()
+    db.commit_rw_txn()
+    r = db.reader()
+    for ef, efu in ((64, None), (48, 32)):
+        search_cuda.KERNELS.reset_counts()
+        beam_cuda.KERNEL.reset_counts()
+        got = r.nns(10).ef_search(ef)
+        got = (got.ef_upper(efu) if efu else got).by_vectors(queries)
+        assert beam_cuda.KERNEL.launches == 0 and 1 <= sum(search_cuda.KERNELS.launches.values()) <= 3
+        want = _host_search(monkeypatch, lambda: (r.nns(10).ef_search(ef).ef_upper(efu) if efu else r.nns(10).ef_search(ef)).by_vectors(queries))
+        assert [row.nns for row in got] == [row.nns for row in want]
+    # an unfiltered by_items: one launch of the beam kernel, the host loop's answers
+    items = list(range(0, len(data), 97))
+    search_cuda.KERNELS.reset_counts()
+    beam_cuda.KERNEL.reset_counts()
+    got = r.nns(10).ef_search(64).by_items(items)
+    assert beam_cuda.KERNEL.launches == 0 and search_cuda.KERNELS.launches == {"beam_search": 1}
+    want = _host_search(monkeypatch, lambda: r.nns(10).ef_search(64).by_items(items))
+    assert [row.nns for row in got] == [row.nns for row in want]
+    db.close()
