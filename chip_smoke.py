@@ -166,8 +166,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    greedy descent, each one launch for a batch), which serve every search
    of dense rows on the card: first, on stores built on the card that no
    other phase holds — one row (ef 10), 40 items searched at ef 64 (a
-   pool that never fills), 3,000 items with NaN rows on the walks and then
-   at an entry point — the kernels equal the host loop
+   pool that never fills), 3,000 euclidean and 3,000 cosine items with NaN
+   rows on the walks and then at an entry point — the kernels equal the
+   host loop
    (``beam.beam_search_loop``, ``greedy_descend_loop``, called directly)
    and their plain versions (``search_cuda.*_rowwise``) bit for bit; then
    on the Readers of phase 6 (100k f32 cosine), of every phase-8 cell
@@ -187,7 +188,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    and pools, over the HBM rate: one more call of it marks what it reads,
    ``search_cuda.seen_buffer``) and its per-pair floor (every distance's
    row and every hop's link row read anew, from its per-row counters),
-   hops per row and µs per hop, and once per form (f32 cosine at 1M) the
+   hops per row and µs per hop, the split of a hop (one more call with
+   ``clocks=``: the cycles thread 0 of each block spent in each stage,
+   per hop), and once per form (f32 cosine at 1M) the
    plain versions of the greedy descent and the layer-0 beam on the
    batch's first 16 rows; and at phases 6 and 12 ``by_vecs`` in turns (kernels,
    host loop, host loop, kernels: the same answers at every ef, QPS) with
@@ -221,8 +224,16 @@ launched (``beam_search[f32/dot]``, ``greedy_descend[bf16/difference]``,
 of that form on the largest store (the layer-0 beam), with the host
 loop's time beside the plain version's. Phase 3
 also gives each case's per-pair floor (each pair's row read once) beside
-its bound. ``--kernel-only`` stops after phase 3. It needs no network
-and imports nothing of JAX.
+its bound. ``--kernel-only`` stops after phase 3. ``--search-only`` runs
+phase 13 alone after phase 2 (the small stores, then a 100k and a 1M
+Reader built through the API for it, and at 1M the staging budgets of
+``BUDGET_SWEEP``), for a change to the search kernels. ``--against
+PATH`` builds a second search library from another ``search.cu`` of the
+same C entries and the first design's layout of shared memory (kept
+outside the package, e.g. in the gitignored ``_work/``) and times it in
+turns with the package's at every timed case of phase 13 (the same
+answers, the ratio, its split). It needs no network and imports nothing
+of JAX.
 """
 
 from __future__ import annotations
@@ -918,6 +929,86 @@ PROFILED_CALLS = 5
 ROWWISE_ROWS = 16
 WIDE_EF = 512
 SEARCH_SLACK = 8
+#: ``--against PATH``: a search library built from another ``search.cu``
+#: (with the ``*.cuh`` beside it) of the same C entries and the first
+#: design's layout of shared memory (``_baseline_shared``), timed in turns
+#: with the package's in phase 13; empty without it
+AGAINST: list = []
+#: ``--search-only``: the staging budgets (``search_cuda.BLOCK_BUDGET``) at
+#: which it times the 1M layer-0 beam and a [4096, 32] layer-1 beam (an
+#: append's seeds): two, three and four blocks an SM
+BUDGET_SWEEP = (113 * 1024, 75 * 1024, 56 * 1024)
+#: ``--search-only``: the batch of the seeds-like layer-1 beam
+SEED_BATCH = 4096
+
+
+def hop_split(fn, kernel: str, batch: int, device) -> dict:
+    """One more call of ``fn(clocks=...)`` (a search kernel's wrapper): the
+    cycles its blocks' thread 0 spent in each stage of a hop
+    (``search_cuda.STAGES``), summed over the blocks, per hop (or step) of
+    the call and as a share of all → {"cycles_per_hop", "share", "hops"}."""
+    from hannoy_tpu_torch.ops import search_cuda
+
+    clocks = search_cuda.clock_buffer(batch, device)
+    fn(clocks=clocks)
+    _sync(device)
+    hops = int(search_cuda.KERNELS.last[kernel]["hops"].sum())
+    total = [float(v) for v in clocks.sum(0).tolist()]
+    per = {name: total[i] / max(1, hops) for i, name in enumerate(search_cuda.STAGES)}
+    whole = sum(per.values()) or 1.0
+    return {"cycles_per_hop": per, "share": {k: v / whole for k, v in per.items()}, "hops": hops}
+
+
+def _split_text(split: dict) -> str:
+    return ", ".join(f"{k} {v:.0f} ({split['share'][k]:.2f})" for k, v in split["cycles_per_hop"].items())
+
+
+def _baseline_shared(dim: int, row_bytes: int, ef: int, width: int) -> tuple[int, int, int]:
+    """The first design's shared memory of a beam block (the query, two
+    pools, five candidate arrays, the warps' minima), with the clocks at
+    its end: the layout of ``--against``'s library."""
+    from hannoy_tpu_torch.ops import search_cuda
+
+    cap = (max(width, 1) + 31) // 32 * 32
+    return cap, search_cuda.WARPS, 4 * (dim + 6 * ef + 5 * cap + search_cuda.WARPS) + search_cuda.CLOCK_BYTES
+
+
+def _with_library(lib, rule, fn):
+    """``fn()`` with the search kernels launched from ``lib`` and the
+    beam's shared memory sized by ``rule``."""
+    from hannoy_tpu_torch.ops import search_cuda
+
+    saved = search_cuda.KERNELS.lib, search_cuda.beam_shared
+    search_cuda.KERNELS.lib, search_cuda.beam_shared = lib.load(), rule
+    try:
+        return fn()
+    finally:
+        search_cuda.KERNELS.lib, search_cuda.beam_shared = saved
+
+
+def against_baseline(fn, kernel: str, batch: int, device) -> dict:
+    """The package's kernel (``fn``) and ``AGAINST``'s (the baseline) on
+    the same inputs: the same answers (bit for bit), each kernel's ms in
+    turns (baseline, new, new, baseline; CUDA-graph replay as
+    ``per_launch_ms``), the ratio, and the baseline's split of a hop."""
+    import torch
+
+    from hannoy_tpu_torch.ops import search_cuda
+
+    old = lambda **kw: _with_library(AGAINST[0], _baseline_shared, lambda: fn(**kw))  # noqa: E731
+    a, b = fn(), old()
+    a, b = (a, b) if kernel == "greedy_descend" else (a[:2], b[:2])
+    same = all(bool(torch.equal(x.view(torch.int32), y.view(torch.int32))) for x, y in
+               zip(a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,)))
+    t = {"baseline": [], "new": []}
+    for who in ("baseline", "new", "new", "baseline"):
+        t[who].append(per_launch_ms([old if who == "baseline" else fn], SEARCH_LAUNCHES))
+    hops = int(search_cuda.KERNELS.last[kernel]["hops"].max())
+    out = {"same_answers": same, "baseline_ms": t["baseline"], "new_ms": t["new"],
+           "ratio": float(np.mean(t["baseline"]) / np.mean(t["new"])),
+           "baseline_split": hop_split(old, kernel, batch, device)}
+    out["baseline_us_per_hop"] = float(np.mean(t["baseline"])) * 1e3 / max(1, hops)
+    return out
 
 
 def search_kernel_checks(label: str, reader, queries, card: str, slack: bool = False, plain_timing: bool = False,
@@ -984,7 +1075,8 @@ def search_kernel_checks(label: str, reader, queries, card: str, slack: bool = F
     if top >= bottom:
         cur = search_cuda.greedy_descend_kernel(dev, q, qn, top, bottom, 128, dev.valid)
         steps.append(("greedy_descend", top,
-                      (lambda seen=None: search_cuda.greedy_descend_kernel(dev, q, qn, top, bottom, 128, dev.valid, seen=seen)),
+                      (lambda seen=None, clocks=None: search_cuda.greedy_descend_kernel(
+                          dev, q, qn, top, bottom, 128, dev.valid, seen=seen, clocks=clocks)),
                       (lambda: beam.greedy_descend_loop(dev, q, qn, top, bottom, 128, dev.valid)),
                       (lambda: search_cuda.greedy_descend_rowwise(dev, q[rows], qn[rows], top, bottom)),
                       [q.shape[0], 1, dev.upper_links.shape[-1]]))
@@ -994,7 +1086,8 @@ def search_kernel_checks(label: str, reader, queries, card: str, slack: bool = F
     if efu > 1 and top >= 1:
         s1 = start
         steps.append(("beam_search", 1,
-                      (lambda seen=None: search_cuda.beam_search_kernel(dev, q, qn, s1, efu, 2 * efu + 16, dev.valid, 1, seen=seen)),
+                      (lambda seen=None, clocks=None: search_cuda.beam_search_kernel(
+                          dev, q, qn, s1, efu, 2 * efu + 16, dev.valid, 1, seen=seen, clocks=clocks)),
                       (lambda: beam.beam_search_loop(dev, q, qn, s1, efu, node_ok=dev.valid, level=1)),
                       (lambda: search_cuda.beam_search_rowwise(dev, q[rows], qn[rows], s1[rows], efu, level=1)),
                       [q.shape[0], efu, dev.upper_links.shape[-1]]))
@@ -1005,7 +1098,8 @@ def search_kernel_checks(label: str, reader, queries, card: str, slack: bool = F
     for e in timing_efs:
         m = 2 * e + 16
         steps.append(("beam_search", 0,
-                      (lambda seen=None, e=e, m=m: search_cuda.beam_search_kernel(dev, q, qn, s0, e, m, dev.valid, 0, seen=seen)),
+                      (lambda seen=None, clocks=None, e=e, m=m: search_cuda.beam_search_kernel(
+                          dev, q, qn, s0, e, m, dev.valid, 0, seen=seen, clocks=clocks)),
                       (lambda e=e, m=m: beam.beam_search_loop(dev, q, qn, s0, e, m, dev.valid, 0)),
                       (lambda e=e, m=m: search_cuda.beam_search_rowwise(dev, q[rows], qn[rows], s0[rows], e, m)),
                       [q.shape[0], e, dev.links0.shape[1]]))
@@ -1026,9 +1120,11 @@ def search_kernel_checks(label: str, reader, queries, card: str, slack: bool = F
                 "bound_by": bound_by,
                 "roofline_share": bound_ms / ms, **counts, "pair_floor_share": counts["pair_floor_ms"] / ms,
                 "us_per_hop": ms * 1e3 / max(1, counts["max_row_hops"]),
-                "dependent_loads": (4 if kernel == "greedy_descend" else 3) * counts["max_row_hops"],
+                "dependent_loads": (2 if level == 0 else 3) * counts["max_row_hops"],
                 "max_abs_err": out["plain_twin"]["max_abs_err"], "plain_ms": None, "plain_rows": None, "library_ms": None,
-                "card": card}
+                "card": card, "split": hop_split(fn, kernel, q.shape[0], device)}
+        if AGAINST:
+            case["against_baseline"] = against_baseline(fn, kernel, q.shape[0], device)
         if plain_timing and (kernel == "greedy_descend" or (level == 0 and shape[1] == ef)):  # the headlines
             _sync(device)
             t0 = time.perf_counter()
@@ -1046,6 +1142,14 @@ def search_kernel_checks(label: str, reader, queries, card: str, slack: bool = F
               f"{bound_ms:.4f} ms ({bound_by}, share {case['roofline_share']:.3f}; distinct {json.dumps(counts['distinct'])}); "
               f"per-pair floor {counts['pair_floor_ms']:.4f} ms (share {case['pair_floor_share']:.3f}); "
               f"{case['dependent_loads']} dependent loads in the slowest row ({card})", flush=True)
+        print(f"[{label}] {kernel} level {level} {shape}: the split of a hop, cycles of thread 0 per hop (share): "
+              f"{_split_text(case['split'])}", flush=True)
+        if AGAINST:
+            ab = case["against_baseline"]
+            print(f"[{label}] {kernel} level {level} {shape} against the baseline kernel, in turns (baseline, new, new, "
+                  f"baseline): baseline {ab['baseline_ms']} ms, new {ab['new_ms']} ms, ratio {ab['ratio']:.3f}, the same "
+                  f"answers {ab['same_answers']}; baseline {ab['baseline_us_per_hop']:.2f} us a hop, its split: "
+                  f"{_split_text(ab['baseline_split'])} ({card})", flush=True)
 
     # (3) a wide pool, and rows wider than m0
     wide = beam.hnsw_search(dev, q, qn, WIDE_EF, ef_upper=efu)
@@ -1086,10 +1190,10 @@ def search_edge_cases(device, card: str) -> dict:
     """Phase 13's cases that no other phase's database holds, at 768 wide
     f32 rows built on the card: a one-row store (ef 10) and a store of 40
     items searched at ef 64 (a pool that never fills), cosine; and a store
-    of 3,000 under euclidean (the kernels' cosine epilogue clamps a NaN to
-    distance 1) whose rows hold NaN on the walks (each entry point's first link
-    at the highest level it has one, every 37th slot; ef 48) and then at
-    an entry point, where every walk must end; 256 queries each: the
+    of 3,000 under euclidean and one under cosine (a NaN row is at distance
+    NaN there too) whose rows hold NaN on the walks (each entry point's
+    first link at the highest level it has one, every 37th slot; ef 48) and
+    then at an entry point, where every walk must end; 256 queries each: the
     search kernels equal the host loop and the plain versions (on the
     first ``ROWWISE_ROWS`` queries of the 3,000-item store) bit for bit."""
     import torch
@@ -1105,7 +1209,8 @@ def search_edge_cases(device, card: str) -> dict:
     out = {}
     for name, n, ef, efu, metric in (("one_row", 1, 10, 1, distances.COSINE),
                                      ("ef_past_the_items", 40, 64, 8, distances.COSINE),
-                                     ("nan_rows", 3000, 48, 8, distances.EUCLIDEAN)):
+                                     ("nan_rows", 3000, 48, 8, distances.EUCLIDEAN),
+                                     ("nan_rows_cosine", 3000, 48, 8, distances.COSINE)):
         qn = torch.from_numpy(distances.np_norms(metric, qs)).to(device)
         data = rng.standard_normal((n, DIM)).astype(np.float32)
         g = hnsw.HostGraph.empty(metric, DIM, M, M0, capacity=hnsw.slot_capacity(n))
@@ -1115,7 +1220,7 @@ def search_edge_cases(device, card: str) -> dict:
         g.norms[:n] = distances.np_norms(metric, data)
         builder.build_graph(g, np.arange(n), np.empty(0, np.int64), builder.BuildOptions(bulk=False), device=device)
         dev = hnsw.to_device(g, device, serve_only=True)
-        if name == "nan_rows":
+        if name.startswith("nan_rows"):
             dev.vectors[torch.tensor(_nan_walk_rows(dev), device=device)] = float("nan")
         reset_counts()
         got = beam.hnsw_search(dev, q, qn, ef, ef_upper=efu)
@@ -1130,7 +1235,7 @@ def search_edge_cases(device, card: str) -> dict:
             raise AssertionError(f"[{label}] {name}: rows hold {int(filled.max())} items of {n}, or an id without a distance")
         out[name] = {"items": n, "ef": ef, "ef_upper": efu, "launches": launches, "iters": int(got.iters)}
         out[name]["rows_hold"] = [int(filled.min()), int(filled.max())]
-        if name == "nan_rows":
+        if name.startswith("nan_rows"):
             # a NaN entry point: torch.argmin takes the first NaN one, and
             # no step improves on NaN, so every walk ends there
             dev.vectors[int(dev.entry_slots[dev.entry_slots >= 0][-1])] = float("nan")
@@ -1170,6 +1275,7 @@ def search_entries() -> list[dict]:
               f"loop {head['host_loop_ms']:.3f} ms, plain {head['plain_ms']:.3f} ms on {head['plain_rows']} rows", flush=True)
         entries.append({
             "name": f"{kernel}[{form}]", "route": "cuda", "source": "hannoy_tpu_torch/csrc/search.cu",
+            "design": "staged hop",  # a hop's rows staged at once, rank and merge by counts, three barriers (one a step)
             "replaces": replaces[kernel], "launches": launches,
             "shape": head["shape"], "store_rows": head["store_rows"], "max_abs_err": head["max_abs_err"],
             "ms": head["ms"], "plain_ms": head["plain_ms"], "plain_rows": head["plain_rows"],
@@ -1177,6 +1283,7 @@ def search_entries() -> list[dict]:
             "library_ms": None,  # no single PyTorch call runs a beam search or a greedy descent
             "call_ms": head["call_ms"], "host_loop_ms": head["host_loop_ms"], "us_per_hop": head["us_per_hop"],
             "max_row_hops": head["max_row_hops"], "dependent_loads": head["dependent_loads"],
+            "baseline_ms": float(np.mean(head["against_baseline"]["baseline_ms"])) if "against_baseline" in head else None,
         })
     return entries
 
@@ -2694,6 +2801,85 @@ def scale_path(device, path: str, card: str) -> dict:
     return out
 
 
+def budget_sweep(label: str, reader, queries, card: str) -> list[dict]:
+    """The 1M layer-0 beam ([256, 100, 32]) and a layer-1 beam of
+    ``SEED_BATCH`` store rows ([4096, 32, 16], an append's seeds) at each
+    staging budget of ``BUDGET_SWEEP`` (``search_cuda.BLOCK_BUDGET``), in
+    turns (the list, then again reversed): ms (``per_launch_ms``) and the
+    staging rows the rule gave, the answers the same at every budget."""
+    import torch
+
+    from hannoy_tpu_torch.ops import search_cuda
+
+    dev = reader._dev
+    q, qn = reader._prep_queries(queries)
+    top, ef, efu = dev.max_level, SEARCH_EF, SCALE_EF_UPPER
+    s1 = search_cuda.greedy_descend_kernel(dev, q, qn, top, 2, 128, dev.valid)[:, None]
+    s0 = search_cuda.beam_search_kernel(dev, q, qn, s1, efu, 2 * efu + 16, dev.valid, 1)[1]
+    slots = torch.arange(0, SEED_BATCH * 97, 97, dtype=torch.int64, device=dev.vectors.device) % reader.n_items()
+    sq, sqn = dev.vectors[slots].float(), dev.norms[slots]
+    seeds = search_cuda.greedy_descend_kernel(dev, sq, sqn, top, 2, 128, dev.valid)[:, None]
+    cases = {"layer 0 [256, 100, 32]": (lambda: search_cuda.beam_search_kernel(dev, q, qn, s0, ef, 2 * ef + 16, dev.valid, 0),
+                                        dev.links0.shape[1], ef),
+             f"layer 1 [{SEED_BATCH}, {efu}, {dev.upper_links.shape[-1]}]": (
+                 lambda: search_cuda.beam_search_kernel(dev, sq, sqn, seeds, efu, 2 * efu + 16, dev.valid, 1),
+                 dev.upper_links.shape[-1], efu)}
+    saved = search_cuda.BLOCK_BUDGET
+    out = []
+    try:
+        for name, (fn, width, e) in cases.items():
+            times: dict = {}
+            answers = {}
+            for budget in (*BUDGET_SWEEP, *reversed(BUDGET_SWEEP)):
+                search_cuda.BLOCK_BUDGET = budget
+                times.setdefault(budget, []).append(per_launch_ms([fn], SEARCH_LAUNCHES))
+                answers.setdefault(budget, fn()[1])
+            same = all(bool(torch.equal(a, answers[BUDGET_SWEEP[0]])) for a in answers.values())
+            for budget in BUDGET_SWEEP:
+                search_cuda.BLOCK_BUDGET = budget
+                _, rows, smem = search_cuda.beam_shared(DIM, DIM * dev.vectors.element_size(), e, width)
+                out.append({"case": name, "budget": budget, "rows": rows, "smem": smem, "ms": times[budget],
+                            "same_answers": same})
+                print(f"[{label}] staging budget {budget} B ({rows} rows, {smem} B a block): {name} "
+                      f"{times[budget]} ms, the same answers {same} ({card})", flush=True)
+    finally:
+        search_cuda.BLOCK_BUDGET = saved
+    return out
+
+
+def search_only(device, path: str, card: str) -> dict:
+    """``--search-only``: phase 13 alone, after a change to the search
+    kernels: its small stores, then the checks, timings, split and (with
+    ``--against``) the A/B of ``search_kernel_checks`` on a 100k and an
+    ``N_SCALE`` f32 cosine Reader (``bench_data``, seed 42) built through
+    the API in ``path``, and at 1M the staging budgets of
+    ``budget_sweep``."""
+    import torch
+
+    from hannoy_tpu_torch import Database, Metric
+
+    out = {"edge_cases": search_edge_cases(device, card)}
+    for n, efc in ((N, EFC), (N_SCALE, EFC_SCALE)):
+        label = f"phase 13 alone at {n}"
+        data, queries = bench_data(np.random.default_rng(42), n if n != N else 0)
+        db = Database(os.path.join(path, str(n)), Metric.COSINE, map_size=SCALE_MAP_SIZE)
+        writer = db.writer(dimensions=DIM, m=M, ef=efc)
+        t0 = time.perf_counter()
+        writer.add_items(range(n), data)
+        del data
+        writer.builder(seed=42).build()
+        db.commit_rw_txn()
+        reader = db.reader()
+        print(f"[{label}] built and opened in {time.perf_counter() - t0:.1f} s", flush=True)
+        out[n] = search_kernel_checks(label, reader, queries, card, slack=True, timing_efs=SCALE_EF)
+        if n == N_SCALE:
+            out["budget_sweep"] = budget_sweep(label, reader, queries, card)
+        db.close()
+        del reader, writer
+        torch.cuda.empty_cache()
+    return out
+
+
 def _spans_of(fn) -> set:
     """Run ``fn`` → the names of the spans it opened."""
     from hannoy_tpu_torch.utils import tracing
@@ -2727,10 +2913,15 @@ def main() -> int:
 
     from hannoy_tpu_torch.ops import search_cuda
 
+    args = sys.argv[1:]
+    if "--against" in args:  # phase 13's A/B: another search.cu, built beside the package's
+        from pathlib import Path
+
+        AGAINST.append(beam_cuda.CudaLibrary(Path(args[args.index("--against") + 1]).resolve(), search_cuda._bind))
     t0 = time.perf_counter()
-    beam_cuda.build_all(beam_cuda.KERNEL, search_cuda.KERNELS)
+    beam_cuda.build_all(beam_cuda.KERNEL, search_cuda.KERNELS, *AGAINST)
     print(f"kernels built in {time.perf_counter() - t0:.2f} s", flush=True)
-    for lib in (beam_cuda.KERNEL, search_cuda.KERNELS):
+    for lib in (beam_cuda.KERNEL, search_cuda.KERNELS, *AGAINST):
         log = lib.build_log
         regs = [int(n) for n in re.findall(r"Used (\d+) registers", log)]
         spills = [int(n) for n in re.findall(r"(\d+) bytes spill", log)]
@@ -2743,6 +2934,12 @@ def main() -> int:
     native_env.load_library()
     print(f"store library built: {os.path.relpath(native_env.library_path())} in {time.perf_counter() - t0:.2f} s", flush=True)
 
+    if "--search-only" in args:  # phase 13 alone, for a change to the search kernels
+        with tempfile.TemporaryDirectory() as search_dir:
+            only = search_only(device, search_dir, card)
+        print("detail " + json.dumps({"search_only": only}, default=str))
+        print(f"chip_smoke --search-only: phase 13's checks passed; phases 3-12 not run ({card})", flush=True)
+        return 0
     cases, floors = check_kernel(device)  # phase 3
     phase_s: dict[str, float] = {}
     clock = [time.perf_counter()]
@@ -2754,7 +2951,7 @@ def main() -> int:
         clock[0] = now
         print(f"{name} took {phase_s[name]:.1f} s", flush=True)
 
-    if "--kernel-only" in sys.argv[1:]:  # a short first run of new kernel code: build, check, time, stop
+    if "--kernel-only" in args:  # a short first run of new kernel code: build, check, time, stop
         print(f"chip_smoke --kernel-only: {len(cases)} cases agree with their twins; phases 4-12 not run", flush=True)
         return 0
     torch.cuda.empty_cache()

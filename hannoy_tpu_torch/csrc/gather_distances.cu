@@ -204,50 +204,7 @@ gather_distances_kernel(const ROW* __restrict__ vectors,
   if (lane == 0) out[pair] = METRIC == kCosine ? cosine_distance(acc, qn[b] * norms[row]) : acc;
 }
 
-// ---- the staged design: asynchronous copies into shared memory ----
-
-__device__ __forceinline__ uint32_t shared_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void barrier_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(shared_addr(bar)) : "memory");
-}
-
-// Arrive once and expect `bytes` of transactions, then copy `bytes` from
-// device memory to shared memory; the copy's completion counts them down.
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(shared_addr(bar)), "r"(bytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
-          shared_addr(dst)),
-      "l"(src), "r"(bytes), "r"(shared_addr(bar))
-      : "memory");
-}
-
-// A block's barrier serves one phase (each block stages one query): wait
-// for phase 0 to complete.
-__device__ __forceinline__ void barrier_wait(uint64_t* bar) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(shared_addr(bar))
-        : "memory");
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void copies_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// 16-byte asynchronous copy from device to shared memory, through L2 only.
-__device__ __forceinline__ void copy16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(shared_addr(dst)), "l"(src) : "memory");
-}
+// ---- the staged design (its copies: row_distance.cuh) ----
 
 // One block per (query b, tile of up to kTile candidates), one warp per
 // kRowsPerWarp candidates of the tile. Dynamic shared memory: the query
@@ -310,7 +267,7 @@ gather_staged_kernel(const ROW* __restrict__ vectors,
       unsigned char* dst = staged + q_bytes + (base + j) * row_bytes;
       for (uint32_t c = 16 * lane; c < row_bytes; c += 16 * 32) copy16(dst + c, src + c);
     }
-    asm volatile("cp.async.commit_group;\n" ::: "memory");  // one group a row, empty or not
+    copies_commit();  // one group a row, empty or not
   }
   const float head = HEADER && row >= 0 ? __ldg(norms + row) : 1.f;
   const float q_norm = METRIC == kCosine ? __ldg(qn + b) : 0.f;

@@ -1,6 +1,7 @@
 // One row's distance to a query, as every dense kernel of the port computes
 // it: gather_distances.cu's staged design, and search.cu's beam search and
-// greedy descent. Each of them calls row_partial and warp_sum below, so a
+// greedy descent; and the asynchronous copies that stage rows in shared
+// memory for both sources. Each of them calls row_partial and warp_sum below, so a
 // distance has the same bits whichever kernel computed it, and the search
 // kernels can be held to exact equality with the host loop that calls the
 // gather kernel hop by hop.
@@ -54,9 +55,13 @@ __device__ __forceinline__ float query(float x) {
   return ROUND ? __bfloat162float(__float2bfloat16_rn(x)) : x;
 }
 
-// The cosine epilogue: the distance from a dot product and qn * norm.
+// The cosine epilogue: the distance from a dot product and qn * norm. The
+// clamp to [-1, 1] keeps a NaN, as jnp.clip and torch.clamp do (fminf and
+// fmaxf would drop it): a row that holds NaN, with a finite norm, is at
+// distance NaN. A NaN or tiny denom still gives 0.
 __device__ __forceinline__ float cosine_distance(float dot, float denom) {
-  const float cosv = fminf(fmaxf(dot / fmaxf(denom, kEps), -1.f), 1.f);
+  const float c = dot / fmaxf(denom, kEps);
+  const float cosv = c < -1.f ? -1.f : (c > 1.f ? 1.f : c);
   return denom > kEps ? (1.f - cosv) * 0.5f : 0.f;
 }
 
@@ -217,6 +222,53 @@ __device__ __forceinline__ void warp_sum(float (&part)[R]) {
 #pragma unroll
     for (int j = 0; j < R; ++j) part[j] += __shfl_xor_sync(0xffffffffu, part[j], off);
   }
+}
+
+// ---- asynchronous copies into shared memory (the staged designs) ----
+
+__device__ __forceinline__ uint32_t shared_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void barrier_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(shared_addr(bar)) : "memory");
+}
+
+// Arrive once and expect `bytes` of transactions, then copy `bytes` from
+// device memory to shared memory; the copy's completion counts them down.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(shared_addr(bar)), "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          shared_addr(dst)),
+      "l"(src), "r"(bytes), "r"(shared_addr(bar))
+      : "memory");
+}
+
+// A block's barrier serves one phase (each block stages one query): wait
+// for phase 0 to complete.
+__device__ __forceinline__ void barrier_wait(uint64_t* bar) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(shared_addr(bar))
+        : "memory");
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void copies_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void copies_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+// 16-byte asynchronous copy from device to shared memory, through L2 only.
+__device__ __forceinline__ void copy16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(shared_addr(dst)), "l"(src) : "memory");
 }
 
 // Lets `kernel` take the card's whole opt-in shared memory a block (above

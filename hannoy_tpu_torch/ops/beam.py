@@ -157,7 +157,7 @@ def greedy_descend(
     may settle on — builders pass exists-and-not-deleted. A cancelled
     walk returns where it stands. The kernel or the host loop, by
     ``search_cuda.search_design_of``."""
-    if _on_kernel(g):
+    if _on_kernel(g, width=g.upper_links.shape[-1]):
         return search_cuda.greedy_descend_kernel(
             g, q, qn, from_level, to_level, max_steps_per_level, g.valid if node_ok is None else node_ok, cancel,
             SYNC_EVERY,

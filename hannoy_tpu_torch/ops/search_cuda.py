@@ -33,7 +33,14 @@ counts launches per kernel (``launches``), per kernel and level walked
 (``by_level``) and per kernel and form (``by_form``: the gather kernel's
 row type and family, ``beam_cuda.form_of``), and keeps each kernel's per-row counters of its last call
 (``last``: hops or steps run, distances computed) for the bound of a
-timing.
+timing. A call with ``clocks=clock_buffer(B)`` records the cycles each
+block's thread 0 spent in each stage of its hops (``STAGES``): the split
+of a hop.
+
+Each block stages the rows of a hop in shared memory, a few slots for
+each of its ``WARPS`` warps: ``beam_shared`` and ``greedy_shared`` size
+the buffer by one rule (``staged_rows``), which the routing rule and the
+launches share.
 """
 
 from __future__ import annotations
@@ -56,12 +63,24 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _GRAPH = [_P, _P, _L, _I, _P, _I, _P, _L, _I, _P, _L, _P, _L, _L, _P]
 #: warps a block of the kernels (``kWarps`` in the source)
 WARPS = 8
+#: the most candidates a hop or a step takes (``kMaxCap``): wider link rows take the host loop
+MAX_CAP = 64
+#: bytes of the per-stage clocks in a block's shared memory (``kClockBytes``)
+CLOCK_BYTES = 208
+#: the stages of a hop that ``clocks`` splits a launch into (``Stage`` in the source)
+STAGES = ("entry", "links", "dedup", "rows", "reduce", "rank", "merge", "barriers")
+#: the shared memory a block of the search kernels aims at: four blocks on
+#: each of the H100's SMs (228 KB an SM, 1 KB of it kept for each block).
+#: Chosen by phase 13's sweep (``chip_smoke.py --search-only``, PERF.md §6):
+#: at the 1M layer-0 beam 16 rows of 768 f32 (this budget) ran 2% faster
+#: than 32 (two blocks an SM), and a batch of 4096 seeds the same
+BLOCK_BUDGET = 56 * 1024
 
 
 def _bind(lib) -> None:
-    lib.search_beam.argtypes = _GRAPH + [_P, _P, _I, _P, _I, _I, _I, _I, _L, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]
+    lib.search_beam.argtypes = _GRAPH + [_P, _P, _I, _P, _I, _I, _I, _I, _I, _L, _I, _I] + [_P] * 7 + [_I, _I, _I, _P]
     lib.search_beam.restype = ctypes.c_int
-    lib.search_greedy.argtypes = _GRAPH + [_P, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P]
+    lib.search_greedy.argtypes = _GRAPH + [_P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _L] + [_P] * 6 + [_I, _I, _I, _P]
     lib.search_greedy.restype = ctypes.c_int
 
 
@@ -92,15 +111,40 @@ class SearchKernels(beam_cuda.CudaLibrary):
 KERNELS = SearchKernels()
 
 
-def beam_shared(dim: int, ef: int, width: int) -> tuple[int, int]:
-    """``beam_search_kernel``'s candidate buffer for link rows of ``width``
-    columns (whole warps) and the bytes of shared memory its block takes, in
-    the layout the kernel carves: the query (``dim`` f32), two pools of
-    ``ef`` (distance, id, expanded), five arrays of the buffer, the warps'
-    minima → (cap, bytes). The routing rule and the launch both size the
-    block by it."""
+def staged_rows(row_bytes: int, fixed: int, width: int) -> int:
+    """The staging buffer's rows (``WARPS`` x the slots a warp has): a
+    slot for each of a warp's share of ``width`` candidates, as many as fit
+    ``BLOCK_BUDGET`` beside the ``fixed`` bytes of the rest of the block
+    (at least one a warp); a warp with more rows than slots takes them in
+    rounds."""
+    share = -(-max(width, 1) // WARPS)
+    fit = (BLOCK_BUDGET - fixed) // (WARPS * row_bytes)
+    return WARPS * max(1, min(share, fit))
+
+
+def beam_shared(dim: int, row_bytes: int, ef: int, width: int) -> tuple[int, int, int]:
+    """``beam_search_kernel``'s candidates a hop (``width`` link columns
+    in whole warps), staging rows (``staged_rows``) and the bytes of shared
+    memory its block takes, in the layout the kernel carves (``beam_bytes``
+    in the source): the query (``dim`` f32), the staging rows of
+    ``row_bytes``, the clocks, two pools of ``ef`` (distance, id,
+    expanded; ef padded to 4), the hop's distances and ids, the warps'
+    finds in the pool → (cap, rows, bytes). The routing rule and the
+    launch both size the block by it."""
     cap = (max(width, 1) + 31) // 32 * 32
-    return cap, 4 * (dim + 6 * ef + 5 * cap + WARPS)
+    fixed = 4 * dim + CLOCK_BYTES + 24 * (-(-ef // 4) * 4) + 8 * cap + 8 * WARPS
+    rows = staged_rows(row_bytes, fixed, width)
+    return cap, rows, fixed + rows * row_bytes
+
+
+def greedy_shared(dim: int, row_bytes: int, width: int) -> tuple[int, int]:
+    """``greedy_descend_kernel``'s staging rows for link rows of ``width``
+    columns and the bytes of shared memory its block takes (``greedy_bytes``
+    in the source: the query, the staging rows, the clocks, two buffers of
+    ``MAX_CAP`` distances) → (rows, bytes)."""
+    fixed = 4 * dim + CLOCK_BYTES + 8 * MAX_CAP
+    rows = staged_rows(row_bytes, fixed, width)
+    return rows, fixed + rows * row_bytes
 
 
 def search_design_of(
@@ -117,16 +161,17 @@ def search_design_of(
 ) -> str:
     """How a search loop runs → "kernel" or "host". ``aligned``: the rows
     start at a 16-byte aligned address; ``traverse_k``: the links a hop
-    reads where that cuts the row (None: the whole row); ``ef`` and
-    ``width`` (link columns) size a beam's shared memory, which must fit
-    the block's (``beam_cuda.STAGED_SMEM``)."""
+    reads where that cuts the row (None: the whole row); ``width`` (link
+    columns) may not pass ``MAX_CAP``; ``ef`` and ``width`` size a beam's
+    shared memory (``beam_shared``), which must fit the block's
+    (``beam_cuda.STAGED_SMEM``)."""
     if device_type != "cuda" or metric.is_packed or row_dtype not in beam_cuda.ROW_TYPES:
         return "host"
     if beam_cuda.design_of(row_dtype, metric, dim, aligned) != "staged":
         return "host"
-    if expand != 1 or traverse_k is not None or tail_allow != 0:
+    if expand != 1 or traverse_k is not None or tail_allow != 0 or width > MAX_CAP:
         return "host"
-    if beam_shared(dim, ef, width)[1] > beam_cuda.STAGED_SMEM:
+    if beam_shared(dim, dim * row_dtype.itemsize, ef, width)[2] > beam_cuda.STAGED_SMEM:
         return "host"
     return "kernel"
 
@@ -138,6 +183,12 @@ def seen_buffer(g) -> torch.Tensor:
     levels, n_pad = g.upper_links.shape[0], g.slot_rows.shape[-1]
     n = g.vectors.shape[0] + n_pad * (1 + levels) + levels * g.upper_links.shape[1]
     return torch.zeros((n,), dtype=torch.uint8, device=g.vectors.device)
+
+
+def clock_buffer(batch: int, device) -> torch.Tensor:
+    """Zeroed per-block clocks for a launch that splits its time (``clocks=``
+    of the wrappers): [batch, len(STAGES)] int64 cycles, added to."""
+    return torch.zeros((batch, len(STAGES)), dtype=torch.int64, device=device)
 
 
 def seen_counts(g, seen: torch.Tensor) -> dict[str, int]:
@@ -191,6 +242,16 @@ def _check_devices(g, *tensors: torch.Tensor) -> torch.device:
     return dev
 
 
+def _check_clocks(clocks: Optional[torch.Tensor], batch: int, dev: torch.device) -> None:
+    if clocks is not None and (clocks.dtype != torch.int64 or clocks.shape != (batch, len(STAGES))
+                               or clocks.device != dev or not clocks.is_contiguous()):
+        raise ValueError("search kernels: clocks must be clock_buffer(B) on the graph's device")
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return t.data_ptr() if t is not None else None
+
+
 def _raise_on(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} kernel did not launch: CUDA error {rc}")
@@ -208,6 +269,7 @@ def beam_search_kernel(
     cancel: Optional[Callable[[], bool]] = None,
     chunk: int = 8,
     seen: Optional[torch.Tensor] = None,
+    clocks: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """``beam.beam_search`` (one entry a hop, the whole row, no tail) by
     ``beam_search_kernel`` → (dists [B, ef], slots [B, ef], iters [] int32,
@@ -215,7 +277,8 @@ def beam_search_kernel(
     end; with one, a launch seeds the pool and each further launch runs at
     most ``chunk`` hops a row, the pool carried in device memory, with
     ``cancel`` called before each while a row is active (True ends it).
-    ``seen``: ``seen_buffer(g)``, marked with what the launches read."""
+    ``seen``: ``seen_buffer(g)``, marked with what the launches read;
+    ``clocks``: ``clock_buffer(B)``, added the cycles of each stage."""
     dev = _check_devices(g, q, qn, start, node_ok)
     metric_id, row_id, scale_rows = _form(g)
     form = beam_cuda.form_of(g.metric, g.vectors.dtype)
@@ -238,16 +301,17 @@ def beam_search_kernel(
     if B == 0:
         return pool_d, pool_id, torch.zeros((), dtype=torch.int32, device=dev), active.bool()
     keep, graph = _graph_args(g, node_ok, seen)
-    cap, smem = beam_shared(g.vectors.shape[1], ef, width)
+    _check_clocks(clocks, B, dev)
+    cap, rows, smem = beam_shared(g.vectors.shape[1], g.vectors.shape[1] * g.vectors.element_size(), ef, width)
     lib = KERNELS.load()
 
     def launch(budget: int, seeded: int) -> None:
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = lib.search_beam(
-                *graph, qf.data_ptr(), qn32.data_ptr(), B, seeds.data_ptr(), seeds.shape[1], level, ef, cap, smem,
-                budget, seeded, pool_d.data_ptr(), pool_id.data_ptr(), pool_exp.data_ptr(), hops.data_ptr(),
-                n_dist.data_ptr(), active.data_ptr(), metric_id, row_id, scale_rows, stream,
+                *graph, qf.data_ptr(), qn32.data_ptr(), B, seeds.data_ptr(), seeds.shape[1], level, ef, cap, rows,
+                smem, budget, seeded, pool_d.data_ptr(), pool_id.data_ptr(), pool_exp.data_ptr(), hops.data_ptr(),
+                n_dist.data_ptr(), active.data_ptr(), _ptr(clocks), metric_id, row_id, scale_rows, stream,
             )
         _raise_on(rc, BEAM)
         KERNELS.count(BEAM, (level,), form)
@@ -277,13 +341,15 @@ def greedy_descend_kernel(
     cancel: Optional[Callable[[], bool]] = None,
     chunk: int = 8,
     seen: Optional[torch.Tensor] = None,
+    clocks: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """``beam.greedy_descend`` by ``greedy_descend_kernel`` → the slot a
     query ends on [B] int32. Without ``cancel`` one launch walks every
     level; with one, a launch starts from the entry points and each level
     runs in launches of at most ``chunk`` steps a row, ``cancel`` called
     before each while a row still improves (True ends that level).
-    ``seen``: ``seen_buffer(g)``, marked with what the launches read."""
+    ``seen``: ``seen_buffer(g)``, marked with what the launches read;
+    ``clocks``: ``clock_buffer(B)``, added the cycles of each stage."""
     dev = _check_devices(g, q, qn, node_ok)
     metric_id, row_id, scale_rows = _form(g)
     form = beam_cuda.form_of(g.metric, g.vectors.dtype)
@@ -302,6 +368,9 @@ def greedy_descend_kernel(
     if B == 0:
         return cur
     keep, graph = _graph_args(g, node_ok, seen)
+    _check_clocks(clocks, B, dev)
+    rows, smem = greedy_shared(g.vectors.shape[1], g.vectors.shape[1] * g.vectors.element_size(),
+                               g.upper_links.shape[-1])
     lib = KERNELS.load()
 
     def launch(top: int, bottom: int, budget: int, init: int) -> None:
@@ -309,8 +378,8 @@ def greedy_descend_kernel(
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = lib.search_greedy(
                 *graph, qf.data_ptr(), qn32.data_ptr(), B, entry.data_ptr(), entry.shape[0], top, bottom, budget,
-                init, cur.data_ptr(), cur_d.data_ptr(), improved.data_ptr(), steps.data_ptr(), n_dist.data_ptr(),
-                metric_id, row_id, scale_rows, stream,
+                init, rows, smem, cur.data_ptr(), cur_d.data_ptr(), improved.data_ptr(), steps.data_ptr(),
+                n_dist.data_ptr(), _ptr(clocks), metric_id, row_id, scale_rows, stream,
             )
         _raise_on(rc, GREEDY)
         KERNELS.count(GREEDY, range(top, bottom - 1, -1), form)

@@ -136,6 +136,32 @@ def _check_against_twin(metric, rows, norms, q, qn, idx, design):
     return got
 
 
+@pytest.mark.parametrize("dim", [768, 130])
+@pytest.mark.parametrize("tier", ["raw", "bf16", "int8"])
+def test_kernel_keeps_nan_rows_under_cosine(cuda, tier, dim):
+    """Rows that hold NaN with a finite norm, and rows with a NaN norm,
+    under cosine: the kernel (staged design at 768, warp design at 130)
+    equals its twin, NaN where the twin has NaN (the epilogue's clamp keeps
+    a NaN, as torch.clamp and jnp.clip do; a NaN norm gives 0)."""
+    metric = distances.COSINE
+    rng = np.random.default_rng(41)
+    x = rng.standard_normal((3000, dim)).astype(np.float32)
+    g = hnsw.HostGraph.empty(metric, dim, 8, 16, capacity=3000)
+    g.vectors[:], g.norms[:] = x, distances.np_norms(metric, x)
+    dev = hnsw.to_device(g, cuda, tier=tier)
+    rows, norms = dev.vectors.clone(), dev.norms.clone()
+    nan_rows = torch.arange(0, 3000, 7, device=cuda)
+    if tier != "int8":  # int8 rows cannot hold a NaN: the header alone does
+        rows[nan_rows, 3] = float("nan")
+    norms[torch.arange(5, 3000, 14, device=cuda)] = float("nan")  # never a NaN row's
+    q = torch.from_numpy(rng.standard_normal((37, dim)).astype(np.float32)).to(cuda)
+    qn = torch.from_numpy(distances.np_norms(metric, q.cpu().numpy())).to(cuda)
+    idx = torch.from_numpy(rng.integers(0, 3000, (37, 33)).astype(np.int32)).to(cuda)
+    idx[:, 0] = nan_rows[:37].int()
+    got = _check_against_twin(metric, rows, norms, q, qn, idx, "staged" if dim == 768 else "warp")
+    assert bool(torch.isnan(got[:, 0]).all()) == (tier != "int8")
+
+
 @pytest.mark.parametrize("k", [1, 8, 31, 32, 33, 64])
 @pytest.mark.parametrize("tier", ["raw", "bf16", "int8"])
 @pytest.mark.parametrize("name", ["cosine", "euclidean", "manhattan"])
@@ -801,13 +827,13 @@ def nan_walk_rows(dev) -> list[int]:
     return sorted({int(r[r >= 0][0]) for r in rows if bool((r >= 0).any())}) + list(range(0, dev.capacity, 37))
 
 
-@pytest.mark.parametrize("case", ["one_row", "ef_past_reach", "link_slack", "ef_512", "nan_rows"])
+@pytest.mark.parametrize("case", ["one_row", "ef_past_reach", "link_slack", "ef_512", "nan_rows", "nan_rows_cosine"])
 def test_search_kernels_edge_cases(cuda, monkeypatch, case):
     """A one-row store; ef larger than the items (a pool that never fills);
-    layer-0 rows wider than m0 (slack columns of -1); ef 512; euclidean
-    rows that hold NaN on the walks and at an entry point (the greedy
-    descent takes a NaN first, as ``torch.argmin`` does; no pool keeps one;
-    under cosine the kernels' epilogue clamps a NaN to distance 1)."""
+    layer-0 rows wider than m0 (slack columns of -1); ef 512; euclidean and
+    cosine rows that hold NaN on the walks and at an entry point (the
+    greedy descent takes a NaN first, as ``torch.argmin`` does; no pool
+    keeps one; under cosine too a NaN row is at distance NaN)."""
     if case == "one_row":
         g = hnsw.HostGraph.empty(distances.COSINE, 64, 8, 16, capacity=hnsw.slot_capacity(1))
         g.alloc_slot(0)
@@ -831,7 +857,7 @@ def test_search_kernels_edge_cases(cuda, monkeypatch, case):
         _, dev, q, qn = _search_graph(cuda)
         _check_search(monkeypatch, dev, q, qn, 512, 8, rows=8)
     else:
-        _, dev, q, qn = _search_graph(cuda, "euclidean")
+        _, dev, q, qn = _search_graph(cuda, "euclidean" if case == "nan_rows" else "cosine")
         dev.vectors[torch.tensor(nan_walk_rows(dev), device=cuda)] = float("nan")
         for ef_upper in (1, 8):
             # (the plain twin's other rounding takes other turns at NaN rows:
@@ -915,3 +941,87 @@ def test_reader_by_vecs_through_the_kernels(cuda, tmp_path, monkeypatch):
     want = _host_search(monkeypatch, lambda: r.nns(10).ef_search(64).by_items(items))
     assert [row.nns for row in got] == [row.nns for row in want]
     db.close()
+
+
+# ---- the staged hop: rows in flight at once, in rounds through the warps' slots ----
+
+
+def _full_rows(dev, seed=5):
+    """``dev`` with every layer-0 link row full: as many distinct live ids
+    as it has columns, none the row's own slot."""
+    import dataclasses
+
+    n, w = int(dev.valid.sum()), dev.links0.shape[1]
+    rng = np.random.default_rng(seed)
+    rows = np.full(tuple(dev.links0.shape), -1, dtype=np.int32)
+    for slot in range(n):
+        ids = rng.choice(n - 1, w, replace=False)
+        rows[slot] = ids + (ids >= slot)
+    return dataclasses.replace(dev, links0=torch.from_numpy(rows).to(dev.links0.device))
+
+
+def _check_beam(monkeypatch, dev, q, qn, start, ef, max_iters=None, node_ok=None, rows=8):
+    """One beam by the kernel (a single launch, no gather launch) against
+    the host loop on the batch and the plain version on its first
+    ``rows`` rows, bit for bit → the kernel's result."""
+    search_cuda.KERNELS.reset_counts()
+    beam_cuda.KERNEL.reset_counts()
+    got = beam.beam_search(dev, q, qn, start, ef, max_iters=max_iters, node_ok=node_ok)
+    torch.cuda.synchronize()
+    assert search_cuda.KERNELS.launches == {"beam_search": 1} and beam_cuda.KERNEL.launches == 0
+    _assert_same(got, beam.beam_search_loop(dev, q, qn, start, ef, max_iters=max_iters, node_ok=node_ok))
+    part = beam.beam_search(dev, q[:rows], qn[:rows], start[:rows], ef, max_iters=max_iters, node_ok=node_ok)
+    _assert_same(part, search_cuda.beam_search_rowwise(dev, q[:rows], qn[:rows], start[:rows], ef, max_iters,
+                                                       node_ok=node_ok)[0])
+    return got
+
+
+@pytest.mark.parametrize("case", ["admits_none", "admits_every_column", "rounds_at_slack_width", "rounds_at_a_wide_pool",
+                                  "bf16_rows", "int8_rows", "seed_batch_4096"])
+def test_search_kernels_staged_hop(cuda, monkeypatch, case):
+    """The hop's cases at 768-wide rows: a hop that admits no candidate
+    (node_ok holds the seeds alone) and one that admits every column (full
+    link rows of 40, one hop from one seed: 1 + 40 distances a row, more
+    than the warps' slots, so in rounds); a wide row and a wide pool (ef
+    640) whose candidates outnumber the slots (``beam_shared``'s rows below
+    the width); bf16 and int8 rows; and the builds' batches of 4096 seeds. The
+    kernels equal the host loop and the plain versions bit for bit."""
+    if case == "seed_batch_4096":
+        _, dev, _, _ = _search_graph(cuda, "euclidean", n=6000)
+        wave = torch.arange(0, 6000, dtype=torch.int32, device=cuda)[:4096]
+        for ef_upper in (1, 8):
+            search_cuda.KERNELS.reset_counts()
+            got = beam.descend_for_slots(dev, wave, dev.max_level, 1, ef_upper=ef_upper)
+            assert sum(search_cuda.KERNELS.launches.values()) >= 1
+            want = _host_search(monkeypatch, lambda: beam.descend_for_slots(dev, wave, dev.max_level, 1, ef_upper=ef_upper))
+            assert torch.equal(got, want)
+        return
+    tier = {"bf16_rows": "bf16", "int8_rows": "int8"}.get(case, "raw")
+    slack = {"admits_none": 0, "rounds_at_a_wide_pool": 16}.get(case, 24)
+    _, dev, q, qn = _search_graph(cuda, "cosine" if case != "int8_rows" else "euclidean", tier, n=2000, d=768,
+                                  slack=slack)
+    width, rb = dev.links0.shape[1], 768 * dev.vectors.element_size()
+    start = dev.entry_slots[None, :1].expand(q.shape[0], -1).contiguous()
+    if case == "admits_none":
+        ok = torch.zeros_like(dev.valid)
+        ok[dev.entry_slots[:1].long()] = True
+        got = _check_beam(monkeypatch, dev, q, qn, start, 16, node_ok=ok)
+        assert bool((got.slots[:, 0] == dev.entry_slots[0]).all()) and bool((got.slots[:, 1:] == -1).all())
+        assert bool((search_cuda.KERNELS.last["beam_search"]["n_dist"] == 1).all())
+    elif case == "admits_every_column":
+        dev = _full_rows(dev)
+        assert search_cuda.beam_shared(768, rb, 48, width)[1] < width  # rounds
+        _check_beam(monkeypatch, dev, q, qn, start, 48, max_iters=1)
+        assert bool((search_cuda.KERNELS.last["beam_search"]["n_dist"] == 1 + width).all())
+        _check_beam(monkeypatch, dev, q, qn, start, 48)
+        _check_search(monkeypatch, dev, q, qn, 48, 8, rows=8)
+    elif case == "rounds_at_slack_width":
+        assert width == 40 and search_cuda.beam_shared(768, rb, 48, width)[1] < width
+        _check_search(monkeypatch, dev, q, qn, 48, 8, rows=8)
+    elif case == "rounds_at_a_wide_pool":
+        assert width == 32 and search_cuda.beam_shared(768, rb, 640, width)[1] < width
+        _check_search(monkeypatch, dev, q, qn, 640, 8, rows=4)
+    else:
+        assert dev.vectors.dtype == {"bf16": torch.bfloat16, "int8": torch.int8}[tier]
+        for ef, ef_upper in ((10, 1), (48, 8)):
+            _check_search(monkeypatch, dev, q, qn, ef, ef_upper, rows=8)

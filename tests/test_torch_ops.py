@@ -309,3 +309,39 @@ def test_design_of_packed_rows_and_the_shared_memory_limit():
         widest = beam_cuda.STAGED_SMEM // (beam_cuda.TILE * dtype.itemsize + 4) // 16 * 16
         assert beam_cuda.design_of(dtype, distances.COSINE, widest, True) == "staged"
         assert beam_cuda.design_of(dtype, distances.COSINE, widest + 16, True) == "warp"
+
+
+@pytest.mark.parametrize("row", ["f32", "bf16", "int8"])
+def test_twin_keeps_nan_rows_as_jax(row):
+    """A store whose rows hold NaN under cosine: the plain twin (the
+    kernels' version on the CPU) equals the JAX package's
+    ``gathered_distances``, NaN where it has NaN. A row with a NaN and a
+    finite norm is at distance NaN (the clamp keeps a NaN); a NaN norm
+    gives 0 in both (``denom > eps`` fails). int8 rows cannot hold a NaN:
+    there the NaN sits in the header alone, and both give 0."""
+    from hannoy_tpu_torch.models import hnsw
+
+    rng = np.random.default_rng(17)
+    n, d, b, k = 200, 32, 9, 24
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    nan_rows, nan_heads = np.arange(0, n, 7), np.arange(4, n, 11)
+    if row != "int8":
+        x[nan_rows, 5] = np.nan
+    rows, heads = hnsw.encode_tier(distances.COSINE, x, distances.np_norms(distances.COSINE, np.nan_to_num(x)),
+                                   {"f32": "raw"}.get(row, row))
+    heads = np.array(heads, dtype=np.float32)
+    heads[nan_heads] = np.nan
+    q = rng.standard_normal((b, d)).astype(np.float32)
+    qn = distances.np_norms(distances.COSINE, q)
+    idx = rng.integers(0, n, (b, k)).astype(np.int32)
+    idx[:, 0], idx[:, 1] = nan_rows[:b], nan_heads[:b]
+    t_rows = rows if isinstance(rows, torch.Tensor) else torch.from_numpy(rows)
+    got = beam_cuda.gathered_distances_plain(distances.COSINE, t_rows, torch.from_numpy(heads), torch.from_numpy(q),
+                                             torch.from_numpy(qn), torch.from_numpy(idx)).numpy()
+    j_rows = jnp.asarray(t_rows.float().numpy()).astype(jnp.bfloat16) if row == "bf16" else jnp.asarray(rows)
+    want = np.asarray(jax_distances.gathered_distances(jax_distances.COSINE, jnp.asarray(q), jnp.asarray(qn),
+                                                       j_rows[idx], jnp.asarray(heads)[idx]))
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    assert (got[:, 1] == 0).all()
+    assert np.isnan(got[:, 0]).all() == (row != "int8")

@@ -32,7 +32,7 @@ from hannoy_tpu.ops import beam as jax_beam
 from hannoy_tpu.ops import distances as jax_distances
 from hannoy_tpu_torch import Database, Metric
 from hannoy_tpu_torch.models import hnsw
-from hannoy_tpu_torch.ops import beam, distances, search_cuda
+from hannoy_tpu_torch.ops import beam, beam_cuda, distances, search_cuda
 from test_torch_build import N, N_QUERIES, _data, _device_state, _opts, _stage
 
 pytest_plugins = ("jax_programs",)  # clears JAX's compiled programs between tests: tests/jax_programs.py
@@ -299,6 +299,39 @@ def test_search_design_rule(case, want):
     CPU tensors never."""
     case = dict(case, metric=distances.by_name(case["metric"]))
     assert search_cuda.search_design_of(**case) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8], ids=str)
+def test_beam_shared_rule_on_both_sides_of_the_limit(dtype):
+    """The staging buffer's one rule (``beam_shared``) and the routing
+    rule: at the main path's shapes a block fits ``BLOCK_BUDGET`` (four
+    blocks an SM), with two slots a warp for 768 f32 rows and a slot for
+    each link of a hop for bf16 and int8 rows; a wide pool or a wide row
+    leaves fewer slots than candidates (rounds), never fewer than one a
+    warp; the largest ef whose block fits ``STAGED_SMEM`` takes the kernel
+    and the next one that does not the host loop, as does a link row past
+    ``MAX_CAP``."""
+    dim, w = 768, search_cuda.WARPS
+    rb = dim * dtype.itemsize
+    design = lambda ef, width=32: search_cuda.search_design_of(  # noqa: E731
+        "cuda", dtype, distances.COSINE, dim, True, ef=ef, width=width)
+    cap, rows, nbytes = search_cuda.beam_shared(dim, rb, 100, 32)
+    assert (cap, rows) == (32, 16 if dtype == torch.float32 else 32) and nbytes <= search_cuda.BLOCK_BUDGET
+    assert 4 * (nbytes + 1024) <= 228 * 1024
+    for ef, width in ((640, 32), (100, 40), (100, 64), (3000, 16)):
+        cap, rows, nbytes = search_cuda.beam_shared(dim, rb, ef, width)
+        assert cap == (width + 31) // 32 * 32 and rows % w == 0 and w <= rows <= -(-width // w) * w
+        assert rows == w or nbytes <= search_cuda.BLOCK_BUDGET
+    if dtype == torch.float32:
+        assert search_cuda.beam_shared(dim, rb, 640, 32)[1] < 32 and search_cuda.beam_shared(dim, rb, 100, 40)[1] < 40
+    fits = [ef for ef in range(1, 20000, 4) if search_cuda.beam_shared(dim, rb, ef, 32)[2] <= beam_cuda.STAGED_SMEM]
+    largest = max(fits)
+    assert design(largest) == "kernel" and search_cuda.beam_shared(dim, rb, largest, 32)[1] == w
+    past = next(ef for ef in range(largest, 40000) if search_cuda.beam_shared(dim, rb, ef, 32)[2] > beam_cuda.STAGED_SMEM)
+    assert design(past) == "host" and design(past - 4) == "kernel"
+    assert design(100, search_cuda.MAX_CAP) == "kernel" and design(100, search_cuda.MAX_CAP + 1) == "host"
+    rows, nbytes = search_cuda.greedy_shared(dim, rb, 16)
+    assert rows == 16 and nbytes <= search_cuda.BLOCK_BUDGET
 
 
 def test_cpu_tensors_take_the_host_loop(built, monkeypatch):
