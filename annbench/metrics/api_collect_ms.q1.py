@@ -1,0 +1,9 @@
+"""api_collect_ms.q1: the program's spans ``reader_collect`` and ``reader_top_up``
+per ``by_vector`` call (ms): the answers' rows built on the host, and the
+degraded-search top-up."""
+
+from annbench.yardstick import program
+
+
+def read(ctx):
+    return program.ms_per_call(ctx, "reader_collect", "reader_top_up")

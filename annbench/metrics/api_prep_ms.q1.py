@@ -1,0 +1,9 @@
+"""api_prep_ms.q1: the program's span ``reader_prep`` per ``by_vector`` call (ms):
+the dimension check, the queries' packing and norms on the host, and their two
+uploads."""
+
+from annbench.yardstick import program
+
+
+def read(ctx):
+    return program.ms_per_call(ctx, "reader_prep")

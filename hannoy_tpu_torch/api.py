@@ -240,11 +240,14 @@ class Database:
     def commit_rw_txn(self) -> bool:
         txn = self._env._shared_wtxn
         if txn is not None and txn.active:
-            txn.commit()
-            self._env._shared_wtxn = None
-            # stamp pending built graphs with the new generation
-            for key, graph in getattr(txn, "_pending_graphs", {}).items():
-                self._env._graph_cache[key] = (self._env._gen.gen_id, graph)
+            with span("store_commit") as sp:
+                txn.commit()
+                if sp.recording:
+                    sp.set(**self._env.last_commit_stats())
+                self._env._shared_wtxn = None
+                # stamp pending built graphs with the new generation
+                for key, graph in getattr(txn, "_pending_graphs", {}).items():
+                    self._env._graph_cache[key] = (self._env._gen.gen_id, graph)
             return True
         return False
 
@@ -647,11 +650,12 @@ class Writer:
                     "build_graph",
                     inserts=len(plan.insert_slots),
                     deletes=len(plan.delete_slots),
-                ):
+                ) as sp:
                     _builder.build_graph(
                         plan.g, plan.insert_slots, plan.delete_slots, opts, stats,
                         device=self._database._device, tier=self._database._tier,
                     )
+                    sp.set(waves=stats.waves)
 
             with span("build_epilogue"):
                 return self._build_epilogue(plan, opts, stats)
@@ -1016,32 +1020,33 @@ class Reader:
     def open(cls, database: Database, index: int) -> "Reader":
         """Open + validate (reader.rs:387-431): metadata present, matching
         distance, clean journal."""
-        env = database._env
-        rtxn = env.read_txn()
-        db = database._db
-        md_bytes = db.get(rtxn, Key.metadata(index).to_bytes())
-        if md_bytes is None:
-            raise MissingMetadata(index)
-        metadata = Metadata.from_bytes(md_bytes)
-        vb = db.get(rtxn, Key.version(index).to_bytes())
-        version = decode_version(vb) if vb else None
-        if version and version > CURRENT_VERSION:
-            raise UnknownVersion(version, CURRENT_VERSION)
-        metric = database.metric.distance
-        if metric.name != metadata.distance:
-            raise UnmatchingDistance(metadata.distance, metric.name)
-        if next(iter(db.prefix_iter(rtxn, Prefix.updated(index))), None) is not None:
-            raise NeedBuild(index)
+        with span("reader_open"):
+            env = database._env
+            rtxn = env.read_txn()
+            db = database._db
+            md_bytes = db.get(rtxn, Key.metadata(index).to_bytes())
+            if md_bytes is None:
+                raise MissingMetadata(index)
+            metadata = Metadata.from_bytes(md_bytes)
+            vb = db.get(rtxn, Key.version(index).to_bytes())
+            version = decode_version(vb) if vb else None
+            if version and version > CURRENT_VERSION:
+                raise UnknownVersion(version, CURRENT_VERSION)
+            metric = database.metric.distance
+            if metric.name != metadata.distance:
+                raise UnmatchingDistance(metadata.distance, metric.name)
+            if next(iter(db.prefix_iter(rtxn, Prefix.updated(index))), None) is not None:
+                raise NeedBuild(index)
 
-        key = (db.name, index)
-        cached = env._graph_cache.get(key)
-        if cached is not None and cached[0] == env._gen.gen_id:
-            graph = cached[1]
-        else:
-            with span("reader_load_graph", items=len(metadata.items)):
-                graph = HostGraph.load(db, rtxn, index, metric, metadata)
-            env._graph_cache[key] = (env._gen.gen_id, graph)
-        return cls(database, index, metadata, version, graph)
+            key = (db.name, index)
+            cached = env._graph_cache.get(key)
+            if cached is not None and cached[0] == env._gen.gen_id:
+                graph = cached[1]
+            else:
+                with span("reader_load_graph", items=len(metadata.items)):
+                    graph = HostGraph.load(db, rtxn, index, metric, metadata)
+                env._graph_cache[key] = (env._gen.gen_id, graph)
+            return cls(database, index, metadata, version, graph)
 
     # -- introspection (reader.rs:545-606) ---------------------------------
     def dimensions(self) -> int:
@@ -1195,15 +1200,17 @@ class Reader:
         an empty index or candidates disjoint from it give empty rows, a
         small candidate set the exact scan, any other the graph search.
         ``cancel``: the caller's cancel closure, or None."""
-        vectors = np.atleast_2d(vectors)
-        if vectors.shape[-1] != self.dimensions():
-            raise InvalidVecDimension(self.dimensions(), vectors.shape[-1])
-        if self._nothing_to_find(opt):
-            return [Searched([], False) for _ in range(vectors.shape[0])]
-        q, qn = self._prep_queries(vectors)
-        if self._should_linear_scan(opt):
-            return self._brute_force(q, qn, opt._candidates, opt._count, cancel)
-        return self._hnsw_search(q, qn, opt, cancel)
+        with span("reader_query"):
+            vectors = np.atleast_2d(vectors)
+            if vectors.shape[-1] != self.dimensions():
+                raise InvalidVecDimension(self.dimensions(), vectors.shape[-1])
+            if self._nothing_to_find(opt):
+                return [Searched([], False) for _ in range(vectors.shape[0])]
+            with span("reader_prep"):
+                q, qn = self._prep_queries(vectors)
+            if self._should_linear_scan(opt):
+                return self._brute_force(q, qn, opt._candidates, opt._count, cancel)
+            return self._hnsw_search(q, qn, opt, cancel)
 
     def _nns_by_item(self, opt: QueryBuilder, item: int, cancel=None) -> Optional[Searched]:
         """Layer-0 search seeded at the item, excluding it
@@ -1222,69 +1229,78 @@ class Reader:
         small candidate set takes the exact scan over the candidates but
         the item. Missing items give ``None`` at their position; ``cancel``
         as in ``_hnsw_search``."""
-        items = [int(i) for i in items]
-        out: list[Optional[Searched]] = [None] * len(items)
-        if self._nothing_to_find(opt):
-            return out
-        present = [b for b, i in enumerate(items) if i in self._graph.id_to_slot]
-        if not present:
-            return out
-        pslots = np.asarray([self._graph.id_to_slot[items[b]] for b in present], dtype=np.int32)
-        pitems = [items[b] for b in present]
-        device = self._database._device
-        sel = torch.from_numpy(pslots).to(device)
-        q, qn = self._dev.vectors[sel.long()], self._dev.norms[sel.long()]
+        with span("reader_query"):
+            items = [int(i) for i in items]
+            out: list[Optional[Searched]] = [None] * len(items)
+            if self._nothing_to_find(opt):
+                return out
+            present = [b for b, i in enumerate(items) if i in self._graph.id_to_slot]
+            if not present:
+                return out
+            with span("reader_prep"):
+                pslots = np.asarray([self._graph.id_to_slot[items[b]] for b in present], dtype=np.int32)
+                pitems = [items[b] for b in present]
+                device = self._database._device
+                sel = torch.from_numpy(pslots).to(device)
+                q, qn = self._dev.vectors[sel.long()], self._dev.norms[sel.long()]
 
-        if self._should_linear_scan(opt):
-            # exact scan per row over the candidates but the item (reader.rs:668-711)
-            if cancel is not None and cancel():
+            if self._should_linear_scan(opt):
+                # exact scan per row over the candidates but the item (reader.rs:668-711)
+                if cancel is not None and cancel():
+                    for b in present:
+                        out[b] = Searched([], True)
+                    return out
+                masks = np.broadcast_to(
+                    self._candidate_mask(opt._candidates), (len(present), self._graph.capacity)
+                ).copy()
+                masks[np.arange(len(present)), pslots] = False
+                rows = self._flat(q, qn, masks, opt._count)
+                for r, b in enumerate(present):
+                    out[b] = Searched(rows[r], False)
+                return out
+
+            cand = self._candidate_mask(opt._candidates)
+            ef = max(opt._ef, opt._count + 1)  # the item may take one pool entry
+            max_iters = 2 * ef + 16
+            latch = _Latch(cancel) if cancel is not None else None
+            if latch is not None and latch():
                 for b in present:
                     out[b] = Searched([], True)
                 return out
-            masks = np.broadcast_to(self._candidate_mask(opt._candidates), (len(present), self._graph.capacity)).copy()
-            masks[np.arange(len(present)), pslots] = False
-            rows = self._flat(q, qn, masks, opt._count)
+            with span("reader_search", queries=len(present), ef=ef) as sp:
+                if cand is None:
+                    # Without candidates the JAX package runs the filtered beam
+                    # with every live item a candidate: its result pool then
+                    # stays equal to its frontier, and its hop is the unfiltered
+                    # beam's (link rows hold no repeated id), so the unfiltered
+                    # beam gives its answers, on the card by the search kernel.
+                    res = _beam.beam_search(self._dev, q, qn, sel[:, None], ef, max_iters=max_iters, cancel=latch)
+                else:
+                    res = _beam.beam_search_filtered(
+                        self._dev, q, qn, sel[:, None], ef, torch.from_numpy(cand).to(device), max_iters=max_iters,
+                        cancel=latch,
+                    )
+                k = min(opt._count + 1, ef)
+                with span("search_to_host"):
+                    dists, slots, active, iters = self._to_host(
+                        res.dists[:, :k], res.slots[:, :k], res.active, res.iters.expand(len(present))
+                    )
+                hops = int(iters[0])
+                sp.set(hops=hops)
+            trunc = active.astype(bool) & (hops >= max_iters)
+            cancelled = latch is not None and latch()  # the final check (JAX beam.py:565)
+            with span("reader_collect"):
+                rows = self._collect(slots, dists, opt._count + 1)
+                searched = [
+                    Searched([(i, d) for i, d in rows[r] if i != pitems[r]][: opt._count], cancelled, bool(trunc[r]))
+                    for r in range(len(present))
+                ]
+            if not cancelled:
+                with span("reader_top_up"):
+                    searched = self._top_up(searched, q, qn, opt, exclude_rows=[{i} for i in pitems])
             for r, b in enumerate(present):
-                out[b] = Searched(rows[r], False)
+                out[b] = searched[r]
             return out
-
-        cand = self._candidate_mask(opt._candidates)
-        ef = max(opt._ef, opt._count + 1)  # the item may take one pool entry
-        max_iters = 2 * ef + 16
-        latch = _Latch(cancel) if cancel is not None else None
-        if latch is not None and latch():
-            for b in present:
-                out[b] = Searched([], True)
-            return out
-        with span("reader_search", queries=len(present), ef=ef):
-            if cand is None:
-                # Without candidates the JAX package runs the filtered beam
-                # with every live item a candidate: its result pool then
-                # stays equal to its frontier, and its hop is the unfiltered
-                # beam's (link rows hold no repeated id), so the unfiltered
-                # beam gives its answers, on the card by the search kernel.
-                res = _beam.beam_search(self._dev, q, qn, sel[:, None], ef, max_iters=max_iters, cancel=latch)
-            else:
-                res = _beam.beam_search_filtered(
-                    self._dev, q, qn, sel[:, None], ef, torch.from_numpy(cand).to(device), max_iters=max_iters,
-                    cancel=latch,
-                )
-            k = min(opt._count + 1, ef)
-            dists, slots, active, iters = self._to_host(
-                res.dists[:, :k], res.slots[:, :k], res.active, res.iters.expand(len(present))
-            )
-        trunc = active.astype(bool) & (int(iters[0]) >= max_iters)
-        rows = self._collect(slots, dists, opt._count + 1)
-        cancelled = latch is not None and latch()  # the final check (JAX beam.py:565)
-        searched = [
-            Searched([(i, d) for i, d in rows[r] if i != pitems[r]][: opt._count], cancelled, bool(trunc[r]))
-            for r in range(len(present))
-        ]
-        if not cancelled:
-            searched = self._top_up(searched, q, qn, opt, exclude_rows=[{i} for i in pitems])
-        for r, b in enumerate(present):
-            out[b] = searched[r]
-        return out
 
     def _flat(self, q: torch.Tensor, qn: torch.Tensor, mask: np.ndarray, count: int) -> list[list[tuple[int, float]]]:
         """Exact top-``count`` rows over the slots of ``mask`` ([capacity],
@@ -1328,7 +1344,7 @@ class Reader:
             if opt._ef_upper is not None
             else _beam.default_ef_upper(self.n_items(), ef)
         )
-        with span("reader_search", queries=B, ef=ef, ef_upper=efu):
+        with span("reader_search", queries=B, ef=ef, ef_upper=efu) as sp:
             if opt._candidates is not None:
                 mask = torch.from_numpy(self._candidate_mask(opt._candidates)).to(self._database._device)
                 res = _beam.hnsw_search_filtered(
@@ -1339,21 +1355,26 @@ class Reader:
             # one transfer to the host: the kept columns of dists (as their
             # bits) and slots, each row's active flag, and the iteration count
             k = min(opt._count, res.slots.shape[1])
-            dists, slots, active, iters = self._to_host(
-                res.dists[:, :k], res.slots[:, :k], res.active, res.iters.expand(B)
-            )
+            with span("search_to_host"):
+                dists, slots, active, iters = self._to_host(
+                    res.dists[:, :k], res.slots[:, :k], res.active, res.iters.expand(B)
+                )
+            hops = int(iters[0])  # the layer-0 beam's, set by its slowest row
+            sp.set(hops=hops)
         # Per-row truncation: a row is truncated only if IT was still
         # improving when the iteration cap cut the loop — one slow query
         # does not stamp the whole batch.
-        trunc = active.astype(bool) & (int(iters[0]) >= max_iters)
+        trunc = active.astype(bool) & (hops >= max_iters)
         cancelled = latch is not None and latch()  # the final check (JAX beam.py:772, 865)
-        searched = [
-            Searched(nns, cancelled, bool(trunc[b]))
-            for b, nns in enumerate(self._collect(slots, dists, opt._count))
-        ]
+        with span("reader_collect"):
+            searched = [
+                Searched(nns, cancelled, bool(trunc[b]))
+                for b, nns in enumerate(self._collect(slots, dists, opt._count))
+            ]
         if cancelled:
             return searched
-        return self._top_up(searched, q, qn, opt)
+        with span("reader_top_up"):
+            return self._top_up(searched, q, qn, opt)
 
     def _top_up(
         self, searched: list[Searched], q: torch.Tensor, qn: torch.Tensor, opt: QueryBuilder,

@@ -366,13 +366,15 @@ def build_graph(
     device = torch.device(device)
     deleted_set = {int(s) for s in deleted_slots}
 
-    slots, lvls, active, exists_ok = plan_build(g, insert_slots, deleted_slots, opts, stats)
+    with span("build_plan"):
+        slots, lvls, active, exists_ok = plan_build(g, insert_slots, deleted_slots, opts, stats)
 
     slack = opts.link_slack
-    dev = hnsw.to_device(g, device, tier=tier, link_slack=slack)
-    dev.valid = torch.tensor(active, device=device)
-    # beam traversal may seed/visit anything that exists
-    node_ok = torch.tensor(exists_ok, device=device)
+    with span("build_upload"):
+        dev = hnsw.to_device(g, device, tier=tier, link_slack=slack)
+        dev.valid = torch.tensor(active, device=device)
+        # beam traversal may seed/visit anything that exists
+        node_ok = torch.tensor(exists_ok, device=device)
 
     # ---- insertion waves, level-descending (hnsw.rs:160-185) ----
     opts.progress.update(BuildStep.BUILDING_THE_GRAPH)

@@ -55,6 +55,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from ..models.hnsw import DeviceGraph
+from ..utils.tracing import span
 from . import beam_cuda, distances, search_cuda, topk
 from .topk import INF, NO_ID
 
@@ -580,8 +581,10 @@ def hnsw_search(
     JAX package's ``hnsw_search_cancellable`` checks it between the
     beam's chunks (the descent runs whole); once it has returned True the
     result is the pool so far."""
-    start = _descend_start(g, q, qn, ef_upper)
-    return beam_search(g, q, qn, start, ef, max_iters, cancel=cancel)
+    with span("search_descend"):
+        start = _descend_start(g, q, qn, ef_upper)
+    with span("search_beam"):
+        return beam_search(g, q, qn, start, ef, max_iters, cancel=cancel)
 
 
 def hnsw_search_filtered(
@@ -597,5 +600,7 @@ def hnsw_search_filtered(
     """``hnsw_search`` with a candidates filter: the descent ignores the
     mask (upper layers route, reader.rs:739-752), the layer-0 beam is
     ``beam_search_filtered``. ``cancel`` as in ``hnsw_search``."""
-    start = _descend_start(g, q, qn, ef_upper)
-    return beam_search_filtered(g, q, qn, start, ef, candidate_mask, max_iters, cancel=cancel)
+    with span("search_descend"):
+        start = _descend_start(g, q, qn, ef_upper)
+    with span("search_beam"):
+        return beam_search_filtered(g, q, qn, start, ef, candidate_mask, max_iters, cancel=cancel)

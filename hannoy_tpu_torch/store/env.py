@@ -30,6 +30,7 @@ import io
 import os
 import struct
 import threading
+import time
 from typing import Iterator, Optional
 
 import numpy as np
@@ -252,6 +253,12 @@ class Database:
         )
 
 
+#: the fields of ``last_commit_stats``: the last commit's batch bytes and the
+#: nanoseconds of its steps (serialize; log: write, flush and fsync;
+#: publish: the copy of the committed tables, the merge and the swap)
+COMMIT_STATS = ("batch_bytes", "serialize_ns", "log_ns", "publish_ns")
+
+
 class Env:
     """A storage environment: one directory holding one append-only log.
 
@@ -274,6 +281,7 @@ class Env:
         self._write_lock = threading.Lock()
         self._writer: Optional[RwTxn] = None
         self._live_bytes = 0
+        self._last_commit = dict.fromkeys(COMMIT_STATS, 0)
         if readonly:
             # Cross-process snapshot open (LMDB parity: other processes may
             # open the env read-only while one writes, reference
@@ -334,9 +342,15 @@ class Env:
         return Database(self, name or "__main__")
 
     # -- commit path -------------------------------------------------------
+    def last_commit_stats(self) -> dict:
+        """The last commit's ``COMMIT_STATS`` (zeros before the first)."""
+        return dict(self._last_commit)
+
     def _commit(self, txn: RwTxn) -> None:
         try:
+            t0 = time.perf_counter_ns()
             batch = self._serialize_batch(txn.overlay)
+            t1 = time.perf_counter_ns()
             pre = self._log.seek(0, os.SEEK_END)
             try:
                 self._log.write(batch)
@@ -352,6 +366,7 @@ class Env:
                     pass
                 raise
 
+            t2 = time.perf_counter_ns()
             new_tables = {n: dict(t) for n, t in self._gen.tables.items()}
             for name, ov in txn.overlay.items():
                 table = new_tables.setdefault(name, {})
@@ -367,6 +382,7 @@ class Env:
                         table[k] = v
                         self._live_bytes += len(k) + len(v) + 16
             self._gen = _Generation(new_tables, self._gen.gen_id + 1)
+            self._last_commit = dict(zip(COMMIT_STATS, (len(batch), t1 - t0, t2 - t1, time.perf_counter_ns() - t2)))
             self._maybe_compact()
         finally:
             self._release_writer(txn)

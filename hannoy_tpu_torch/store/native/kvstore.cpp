@@ -24,6 +24,7 @@
 
 #include <algorithm>
 #include <atomic>
+#include <chrono>
 #include <cstdint>
 #include <cstdio>
 #include <cstring>
@@ -94,7 +95,16 @@ struct Env {
   std::mutex write_mu;   // single writer
   std::mutex swap_mu;    // generation swap
   std::string error;
+  // the last commit's batch bytes and the nanoseconds of its steps:
+  // serialize, log (write + flush + fsync), publish (copy, merge, swap)
+  std::mutex stats_mu;
+  uint64_t last_commit[4] = {0, 0, 0, 0};
 };
+
+inline uint64_t ns_between(std::chrono::steady_clock::time_point a,
+                           std::chrono::steady_clock::time_point b) {
+  return (uint64_t)std::chrono::duration_cast<std::chrono::nanoseconds>(b - a).count();
+}
 
 struct Txn {
   Env* env;
@@ -701,7 +711,9 @@ int64_t hny_scan_vals(Txn* t, const char* name, uint64_t lo, uint64_t hi,
 // returns 0 ok, -2 io error.
 int hny_commit(Txn* t) {
   Env* env = t->env;
+  auto t0 = std::chrono::steady_clock::now();
   std::string batch = serialize_batch(*t->overlay);
+  auto t1 = std::chrono::steady_clock::now();
   // Record the pre-batch offset so a failed append can be rolled back —
   // torn bytes left mid-log would make replay_log truncate away *later*
   // successfully-committed batches on the next open.
@@ -719,6 +731,7 @@ int hny_commit(Txn* t) {
     delete t;
     return -2;
   }
+  auto t2 = std::chrono::steady_clock::now();
 
   auto next = std::make_shared<Generation>();
   next->gen_id = env->gen->gen_id + 1;
@@ -731,10 +744,26 @@ int hny_commit(Txn* t) {
     std::lock_guard<std::mutex> g(env->swap_mu);
     env->gen = next;
   }
+  auto t3 = std::chrono::steady_clock::now();
+  {
+    std::lock_guard<std::mutex> g(env->stats_mu);
+    env->last_commit[0] = batch.size();
+    env->last_commit[1] = ns_between(t0, t1);
+    env->last_commit[2] = ns_between(t1, t2);
+    env->last_commit[3] = ns_between(t2, t3);
+  }
   env->write_mu.unlock();
   delete t->overlay;
   delete t;
   return 0;
+}
+
+// The last successful commit of this environment: out = {batch bytes,
+// serialize ns, log ns (write + flush + fsync), publish ns (the copy of the
+// committed tables, the merge and the swap)}; zeros before the first.
+void hny_last_commit_stats(Env* env, uint64_t out[4]) {
+  std::lock_guard<std::mutex> g(env->stats_mu);
+  memcpy(out, env->last_commit, sizeof(env->last_commit));
 }
 
 uint64_t hny_log_size(Env* env) {

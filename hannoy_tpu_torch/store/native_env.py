@@ -26,6 +26,7 @@ from typing import Iterator, Optional
 import numpy as np
 
 from ..errors import DatabaseFull, StoreError
+from .env import COMMIT_STATS
 from .env import Env as PyEnv
 
 SOURCE = Path(__file__).resolve().parent / "native" / "kvstore.cpp"
@@ -117,6 +118,8 @@ def load_library():
     lib.hny_log_size.argtypes = [ctypes.c_void_p]
     lib.hny_snap_covered.restype = ctypes.c_uint64
     lib.hny_snap_covered.argtypes = [ctypes.c_void_p]
+    lib.hny_last_commit_stats.restype = None
+    lib.hny_last_commit_stats.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_uint64)]
     lib.hny_bulk_rows.restype = ctypes.c_int64
     lib.hny_bulk_rows.argtypes = [
         ctypes.c_void_p, ctypes.c_char_p, ctypes.c_uint64, ctypes.c_uint64,
@@ -423,6 +426,12 @@ class NativeEnv:
 
     def create_database(self, txn, name: Optional[str]) -> NativeDatabase:
         return NativeDatabase(self, name or "__main__")
+
+    def last_commit_stats(self) -> dict:
+        """The last commit's ``COMMIT_STATS`` (zeros before the first)."""
+        out = (ctypes.c_uint64 * len(COMMIT_STATS))()
+        self._lib.hny_last_commit_stats(self._ptr, out)
+        return dict(zip(COMMIT_STATS, out))
 
     def compact(self) -> None:
         rc = self._lib.hny_compact(self._ptr)

@@ -39,12 +39,6 @@ class BuildStats:
     beam_iters: int = 0
     touched: Optional[np.ndarray] = None
 
-    def incr_link_count(self, n: int = 1) -> None:
-        self.links_added += n
-
-    def incr_gathers(self, n: int = 1) -> None:
-        self.store_gathers += n
-
     def log(self) -> None:
         logger.debug(
             "BuildStats(links=%d gathers=%d waves=%d beam_iters=%d layers=%s)",
