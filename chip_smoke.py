@@ -61,8 +61,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    the 256 queries at ef 100 → ``close`` → a new ``Database`` and Reader
    (100,000 items, the same answers item for item, recall@10 >= 0.93
    against ``flat_topk``, ``assert_validity``) → append 2,000 items from
-   the same centres → ``build()`` (incremental, through ``HostGraph.load``
-   and ``fill_link_dists``) → commit → a new Reader (102,000 items, each
+   the same centres → ``build()`` (incremental, from a fork of the graph the
+   Reader loaded, through ``fill_link_dists``) → commit → a new Reader (102,000 items, each
    appended vector finds itself first in >= 0.99 of rows at ef 100).
    Every span of this phase is fenced, and each carries the kernel
    launches made inside it. ``Reader.by_vecs`` is timed beside
@@ -155,7 +155,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    against ``flat_topk`` over every item, >= 0.93 at ef 100) → close →
    reopen → ``Reader.open`` (load and upload apart; device bytes per item)
    → the same answers, ``assert_validity`` → append 2,000 → ``build()``
-   (``load_graph``, ``fill_link_dists``, waves) → commit → self-hit >= 0.99
+   (``fork_graph``, ``fill_link_dists``, waves) → commit → self-hit >= 0.99
    and ``assert_validity`` on all 1,002,000 items. The widths of the
    search's pooled layer-1 descent and of the append's level-0 insertion
    seeds are read from the port's spans (``reader_search``,
@@ -1593,7 +1593,7 @@ def api_path(device, path: str, data, queries, card: str) -> dict:
     with recorded() as spans:
         stats, out["seconds"]["append_build"] = timed("append build (fenced spans)", lambda: writer.builder(seed=42).build())
     out["spans"]["append_build"] = sp = _print_spans(label, spans)
-    for need in ("load_graph", "fill_link_dists"):
+    for need in ("fork_graph", "fill_link_dists"):  # the Reader's loaded graph, forked; its distances filled
         if need not in sp:
             raise AssertionError(f"[{label}] the append did not go through {need}")
     if sp["fill_link_dists"]["launches"] == 0:
@@ -2642,8 +2642,8 @@ def scale_path(device, path: str, card: str) -> dict:
     over every item (>= RECALL_BAR at ef 100); (e) close → reopen →
     ``Reader.open``, its load and upload apart, device bytes per item →
     the same answers at ef 100, ``assert_validity``; (f) append
-    ``N_APPEND`` (seed 43) → ``build()`` (``load_graph``,
-    ``fill_link_dists``, waves) → commit → self-hit >= SELF_HIT_BAR and
+    ``N_APPEND`` (seed 43) → ``build()`` (``fork_graph`` of the graph the
+    Reader loaded, ``fill_link_dists``, waves) → commit → self-hit >= SELF_HIT_BAR and
     ``assert_validity`` on every item. The search's pooled-descent width
     (span ``reader_search``) and the append's level-0 seed width (span
     ``insert_seeds``) must be ``SCALE_EF_UPPER``. Every span is fenced and
@@ -2767,7 +2767,7 @@ def scale_path(device, path: str, card: str) -> dict:
     with recorded() as spans:
         stats, out["seconds"]["append_build"] = timed("append build (fenced spans)", lambda: writer.builder(seed=42).build())
     out["spans"]["append_build"] = sp = _print_spans(label, spans, skip=("insert_wave", "insert_seeds"))
-    for need in ("load_graph", "fill_link_dists", "insert_wave"):
+    for need in ("fork_graph", "fill_link_dists", "insert_wave"):  # the Reader's loaded graph, forked
         if need not in sp:
             raise AssertionError(f"[{label}] the append did not go through {need}: {sorted(sp)}")
     if sp["fill_link_dists"]["launches"] == 0:

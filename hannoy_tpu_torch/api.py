@@ -33,7 +33,8 @@ device loops come back to the host, and once more after them (the JAX
 package's rule): once it has returned True the search stops, and every
 row holds what its pool held then (``did_cancel``). A build's closure
 (``HannoyBuilder.cancel``) raises ``BuildCancelled``; the transaction can
-then be aborted, and the half-built graph is dropped from the cache.
+then be aborted. A build works on a fork of the committed graph, so the
+half-built one is dropped and the committed one stays as it was.
 """
 
 from __future__ import annotations
@@ -43,7 +44,7 @@ import os
 import struct
 import threading
 from dataclasses import dataclass
-from typing import Callable, Iterator, Optional, Sequence
+from typing import Callable, Iterator, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -132,7 +133,7 @@ def _shared_env(path: str, map_size: int, readonly: bool = False, backend: str =
         env = _ENVS.get(key)
         if env is None:
             env = open_env(path, map_size, backend=backend, readonly=readonly)
-            env._graph_cache = {}  # {(name,index): (gen_id, HostGraph)}
+            env._graph_cache = {}  # {(name, index): _CachedGraph}
             env._shared_wtxn = None
             env._registry_key = key
             env._backend = backend
@@ -142,6 +143,18 @@ def _shared_env(path: str, map_size: int, readonly: bool = False, backend: str =
                 f"{path} is already open in this process with the {env._backend!r} store backend"
             )
         return env
+
+
+class _CachedGraph(NamedTuple):
+    """A graph held in memory for one index: the committed one in
+    ``env._graph_cache``, or a write transaction's own in
+    ``_pending_graphs`` until its commit stamps the generation."""
+
+    gen: Optional[int]
+    graph: HostGraph
+    #: the tier its link distances were computed under; None when they are
+    #: unknown (a Reader's ``HostGraph.load`` leaves them NaN)
+    dists_tier: Optional[str]
 
 
 def _validate_m(m: int, m0: int) -> None:
@@ -246,8 +259,8 @@ class Database:
                     sp.set(**self._env.last_commit_stats())
                 self._env._shared_wtxn = None
                 # stamp pending built graphs with the new generation
-                for key, graph in getattr(txn, "_pending_graphs", {}).items():
-                    self._env._graph_cache[key] = (self._env._gen.gen_id, graph)
+                for key, entry in getattr(txn, "_pending_graphs", {}).items():
+                    self._env._graph_cache[key] = entry._replace(gen=self._env._gen.gen_id)
             return True
         return False
 
@@ -383,6 +396,8 @@ class _BuildPlan:
     to_delete: IdSet
     insert_slots: np.ndarray
     delete_slots: np.ndarray
+    #: the build starts from a graph held in memory, not one loaded from the store
+    graph_reused: bool
 
     @property
     def built(self) -> bool:
@@ -558,7 +573,7 @@ class Writer:
             for key, _ in list(db.prefix_iter(wtxn, Prefix.all(self._index))):
                 db.delete(wtxn, key)
         self._purge_staging(wtxn)
-        self._database._env._graph_cache.pop(self._cache_key, None)
+        self._drop_graphs()
 
     # -- introspection --------------------------------------------------
     def need_build(self) -> bool:
@@ -597,25 +612,45 @@ class Writer:
     def _cache_key(self):
         return (self._database._db.name, self._index)
 
-    def _load_or_cached_graph(self, wtxn, metadata: Optional[Metadata]) -> HostGraph:
+    def _load_or_cached_graph(
+        self, wtxn, metadata: Optional[Metadata], deleted_items: IdSet
+    ) -> tuple[HostGraph, bool, bool]:
+        """The graph a build starts from → ``(graph, reused, dists_known)``.
+
+        A second build in one transaction takes the transaction's own graph.
+        Otherwise the build forks the graph this process committed last
+        (``HostGraph.fork``: the cache entry, which Readers serve, is never
+        built on) when that graph is the transaction's base generation, and
+        the journal deletes none of its items: ``HostGraph.load`` gives a
+        deleted item a ghost slot (zero vector, links kept) that the
+        deletion repair reads. Either graph must have the Writer's metric,
+        ``m`` and ``m0``, and link distances of the Database's tier or
+        unknown (``dists_known`` False: a Reader's load; the prologue fills
+        them). Else the graph is loaded from the store, or starts empty."""
         env = self._database._env
-        cached = env._graph_cache.get(self._cache_key)
-        if cached is not None:
-            gen, graph = cached
-            fresh = gen == env._gen.gen_id and not getattr(wtxn, "overlay", None)
-            pending = getattr(wtxn, "_pending_graphs", {}).get(self._cache_key)
-            if pending is not None:
-                graph = pending
-                fresh = True
-            if (
-                fresh
-                and graph.metric.name == self._metric.name
-                and graph.m == self._m
-                and graph.m0 == self._m0
+        entry = getattr(wtxn, "_pending_graphs", {}).get(self._cache_key)
+        fork = entry is None
+        if fork:
+            entry = env._graph_cache.get(self._cache_key)
+            if entry is not None and (
+                entry.gen != env._gen.gen_id
+                or any(int(i) in entry.graph.id_to_slot for i in deleted_items)
             ):
-                return graph
+                entry = None
+        if (
+            entry is not None
+            and entry.graph.metric.name == self._metric.name
+            and entry.graph.m == self._m
+            and entry.graph.m0 == self._m0
+            and entry.dists_tier in (None, self._database._tier)
+        ):
+            g = entry.graph
+            if fork:
+                with span("fork_graph", items=len(g.id_to_slot)):
+                    g = g.fork()
+            return g, True, entry.dists_tier is not None
         if metadata is None:
-            return HostGraph.empty(self._metric, self._dimensions, self._m, self._m0)
+            return HostGraph.empty(self._metric, self._dimensions, self._m, self._m0), False, True
         md = Metadata(
             dimensions=metadata.dimensions,
             items=metadata.items,
@@ -628,20 +663,25 @@ class Writer:
         with span("load_graph", items=len(metadata.items)):
             g = HostGraph.load(self._database._db, wtxn, self._index, self._metric, md)
         if len(metadata.items):
-            # persisted rows carry ids only: recompute the link distances
-            # on the device and bring them back to the host mirror
-            with span("load_to_device"):
-                dev = _hnsw.to_device(g, self._database._device, tier=self._database._tier)
-            with span("fill_link_dists"):
-                dev = wave_ops.fill_link_dists(dev, g)
-            with span("load_from_device"):
-                _hnsw.from_device(g, dev)
-        return g
+            # persisted rows carry ids only
+            self._fill_link_dists(g)
+        return g, False, True
+
+    def _fill_link_dists(self, g: HostGraph) -> None:
+        """Recompute every link's distance on the device, under the
+        Database's tier, into the host mirror ``g``."""
+        with span("load_to_device"):
+            dev = _hnsw.to_device(g, self._database._device, tier=self._database._tier)
+        with span("fill_link_dists"):
+            dev = wave_ops.fill_link_dists(dev, g)
+        with span("load_from_device"):
+            _hnsw.from_device(g, dev)
 
     def _build(self, opts: _builder.BuildOptions, m=None, m0=None) -> BuildStats:
         try:
-            with span("build_prologue"):
+            with span("build_prologue") as sp:
                 plan = self._build_prologue(opts, m=m, m0=m0)
+                sp.set(graph_reused=int(plan.graph_reused))
             stats = BuildStats()
 
             # 4. device build
@@ -663,11 +703,18 @@ class Writer:
             self._forget_graph()
             raise
 
-    def _forget_graph(self) -> None:
-        """Drop this index's graph from the cache and the transaction: a
-        build that raised (``BuildCancelled``) left it half-built, so the
-        next build or Reader loads it from the store again."""
+    def _drop_graphs(self) -> None:
+        """Drop this index's committed graph and the transaction's own: the
+        store no longer holds what either graph does (``clear``, a rebuild,
+        a conversion), so the next build and ``Reader.open`` must not start
+        from them, nor the commit keep the transaction's."""
         self._database._env._graph_cache.pop(self._cache_key, None)
+        self._forget_graph()
+
+    def _forget_graph(self) -> None:
+        """Drop this index's graph from the transaction: a build that raised
+        (``BuildCancelled``) left it half-built. The committed graph in the
+        cache is never built on (a build forks it), so it stays."""
         txn = self._database._env._shared_wtxn
         getattr(txn, "_pending_graphs", {}).pop(self._cache_key, None)
 
@@ -703,11 +750,14 @@ class Writer:
         # 3. stage graph — staged decoded rows (add_item/add_items in this
         # txn) skip the per-item store read; only items journaled by an
         # earlier txn fall back to db.get
-        g = self._load_or_cached_graph(wtxn, metadata)
+        g, reused, dists_known = self._load_or_cached_graph(wtxn, metadata, deleted_items)
         g.grow(_hnsw.slot_capacity(len(item_indices)))
         staged = self._staging(wtxn)
         to_ins_arr = to_insert.to_array()  # sorted u32 — IdSet iteration order
         n_ins = len(to_ins_arr)
+        # an item the graph holds that comes back with a new vector: rows
+        # that link it keep the old vector's distance
+        rewritten = reused and any(int(i) in g.id_to_slot for i in to_ins_arr.tolist())
 
         # slot allocation: one arange for the fresh-graph case, per-item
         # otherwise (free-list / existing-id reuse)
@@ -736,22 +786,22 @@ class Writer:
             pos = np.minimum(np.searchsorted(uniq, to_ins_arr), len(uniq) - 1)
             hit = uniq[pos] == to_ins_arr
             take = src[pos[hit]]
-            hs = insert_slots[hit]
-            g.vectors[hs] = rows_c[take]
-            g.norms[hs] = norms_c[take]
+            g.set_rows(insert_slots[hit], rows_c[take], norms_c[take])
             filled[hit] = True
-        for i in np.nonzero(~filled)[0].tolist():
-            item = int(to_ins_arr[i])
-            s = int(insert_slots[i])
-            row = staged.get((self._index, item))
-            if row is not None:
-                g.vectors[s] = row[0]
-                g.norms[s] = row[1]
-                continue
-            val = db.get(wtxn, Key.item(self._index, item).to_bytes())
-            header, vecb = decode_item(val)
-            g.vectors[s] = codecs.vector_from_bytes(vecb, self._metric.codec)
-            g.norms[s] = struct.unpack("<f", header)[0]
+        rest = np.nonzero(~filled)[0]
+        if len(rest):
+            rows, norms = [], []
+            for item in to_ins_arr[rest].tolist():
+                row = staged.get((self._index, item))
+                if row is None:
+                    header, vecb = decode_item(db.get(wtxn, Key.item(self._index, item).to_bytes()))
+                    row = (codecs.vector_from_bytes(vecb, self._metric.codec), struct.unpack("<f", header)[0])
+                rows.append(row[0])
+                norms.append(row[1])
+            g.set_rows(insert_slots[rest], np.stack(rows), np.asarray(norms, dtype=np.float32))
+        if reused and (rewritten or not dists_known):
+            # as the load path does, on the rows staged above
+            self._fill_link_dists(g)
         delete_slots = np.asarray(
             [g.id_to_slot[int(i)] for i in to_delete if int(i) in g.id_to_slot],
             dtype=np.int64,
@@ -763,6 +813,7 @@ class Writer:
             to_delete=to_delete,
             insert_slots=insert_slots,
             delete_slots=delete_slots,
+            graph_reused=reused,
         )
 
     def _build_epilogue(
@@ -814,7 +865,7 @@ class Writer:
 
         if not hasattr(wtxn, "_pending_graphs"):
             wtxn._pending_graphs = {}
-        wtxn._pending_graphs[self._cache_key] = g
+        wtxn._pending_graphs[self._cache_key] = _CachedGraph(None, g, self._database._tier)
         stats.log()
         return stats
 
@@ -834,7 +885,7 @@ class Writer:
                 Key.updated(self._index, int(item)).to_bytes(),
                 encode_update_status(UpdateStatus.UPDATED),
             )
-        self._database._env._graph_cache.pop(self._cache_key, None)
+        self._drop_graphs()
         db.delete(wtxn, Key.metadata(self._index).to_bytes())
         return self._build(opts, m=m, m0=m0)
 
@@ -872,7 +923,7 @@ class Writer:
                 n += 1
             else:
                 db.delete(wtxn, key)
-        self._database._env._graph_cache.pop(self._cache_key, None)
+        self._drop_graphs()
         return n
 
     def prepare_changing_distance(self, new_metric: Metric) -> "Writer":
@@ -911,7 +962,7 @@ class Writer:
                     Key.updated(self._index, k.item).to_bytes(),
                     encode_update_status(UpdateStatus.UPDATED),
                 )
-            self._database._env._graph_cache.pop(self._cache_key, None)
+            self._drop_graphs()
         return Writer(
             self._database._with_metric(new_metric),
             self._index, self._dimensions, self._m, self._m0, self._ef_construction,
@@ -1040,12 +1091,12 @@ class Reader:
 
             key = (db.name, index)
             cached = env._graph_cache.get(key)
-            if cached is not None and cached[0] == env._gen.gen_id:
-                graph = cached[1]
+            if cached is not None and cached.gen == env._gen.gen_id:
+                graph = cached.graph
             else:
                 with span("reader_load_graph", items=len(metadata.items)):
                     graph = HostGraph.load(db, rtxn, index, metric, metadata)
-                env._graph_cache[key] = (env._gen.gen_id, graph)
+                env._graph_cache[key] = _CachedGraph(env._gen.gen_id, graph, None)
             return cls(database, index, metadata, version, graph)
 
     # -- introspection (reader.rs:545-606) ---------------------------------

@@ -86,6 +86,11 @@ class HostGraph:
     id_to_slot: dict[int, int] = dataclasses.field(default_factory=dict)
     free_slots: list[int] = dataclasses.field(default_factory=list)
     next_fresh: int = 0  # first never-allocated slot
+    #: rows [0, _shared_rows) of ``vectors`` and ``norms`` are shared with
+    #: the graph this one was forked from; ``set_rows`` copies them before it
+    #: writes one (an attribute, not a field: no other implementation's
+    #: state carries it)
+    _shared_rows = 0
 
     # -- construction ------------------------------------------------------
     @classmethod
@@ -117,6 +122,45 @@ class HostGraph:
             entry_slots=[],
             max_level=0,
         )
+
+    def fork(self) -> "HostGraph":
+        """A copy to build on, so that nothing done to it (a build's staging,
+        ``grow``, its waves' sync) reaches this graph, which Readers may
+        serve and later builds start from. Every array, per-layer list, map
+        and free list is copied but the rows of ``vectors`` and ``norms``
+        (0.9 GB at 100k x 1536 f32 slots, most of a copy's time in page
+        faults): the fork shares them up to this graph's ``next_fresh``, and
+        ``set_rows`` copies them before a write below it. An append into
+        never-allocated slots copies no row."""
+        fork = dataclasses.replace(
+            self,
+            ids=self.ids.copy(),
+            levels=self.levels.copy(),
+            links0=self.links0.copy(),
+            dists0=self.dists0.copy(),
+            upper_links=[a.copy() for a in self.upper_links],
+            upper_dists=[a.copy() for a in self.upper_dists],
+            slot_rows=[a.copy() for a in self.slot_rows],
+            upper_row_count=list(self.upper_row_count),
+            entry_slots=list(self.entry_slots),
+            id_to_slot=dict(self.id_to_slot),
+            free_slots=list(self.free_slots),
+        )
+        fork._shared_rows = self.next_fresh
+        return fork
+
+    def set_rows(self, slots: np.ndarray, vectors: np.ndarray, norms: np.ndarray) -> None:
+        """Write the rows of ``slots``: the one writer of ``vectors`` and
+        ``norms`` once a graph exists. If a slot lies below ``_shared_rows``
+        (slots that the graph forked from, or one it was forked from in
+        turn, may hold: ``next_fresh`` only grows along forks), the rows are
+        copied first, so that no graph a fork shares rows with is written."""
+        if len(slots) and int(np.min(slots)) < self._shared_rows:
+            self.vectors = self.vectors.copy()
+            self.norms = self.norms.copy()
+            self._shared_rows = 0
+        self.vectors[slots] = vectors
+        self.norms[slots] = norms
 
     @property
     def capacity(self) -> int:
@@ -160,6 +204,7 @@ class HostGraph:
         self.links0 = pad(self.links0, -1)
         self.dists0 = pad(self.dists0, np.inf)
         self.slot_rows = [pad(sr, -1) for sr in self.slot_rows]
+        self._shared_rows = 0
 
     def alloc_slot(self, item_id: int) -> int:
         existing = self.id_to_slot.get(item_id)
@@ -279,6 +324,7 @@ class HostGraph:
         self.id_to_slot = {int(self.ids[s]): int(s) for s in np.nonzero(self.ids != INVALID_ID)[0]}
         self.free_slots = np.nonzero(self.ids == INVALID_ID)[0].tolist()
         self.next_fresh = self.capacity
+        self._shared_rows = 0
 
     # -- store I/O ---------------------------------------------------------
     @classmethod

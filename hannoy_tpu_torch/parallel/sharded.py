@@ -225,10 +225,8 @@ def build_sharded(
         nrm = distances.np_norms(metric, packed)
         slots = np.empty(len(part), dtype=np.int64)
         for i, row in enumerate(part):
-            s = g.alloc_slot(int(item_ids[row]))
-            slots[i] = s
-            g.vectors[s] = packed[i]
-            g.norms[s] = nrm[i]
+            slots[i] = g.alloc_slot(int(item_ids[row]))
+        g.set_rows(slots, packed, nrm)
         plans.append(_builder.plan_build(g, slots, np.empty(0, dtype=np.int64), opts, BuildStats()))
         graphs.append(g)
     pad_to_common_shapes(graphs)

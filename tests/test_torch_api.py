@@ -20,6 +20,7 @@ rounding off in the JAX package, and one test holds an append inside the
 building transaction by validity and recall instead.
 """
 
+import copy
 import inspect
 import shutil
 
@@ -246,7 +247,8 @@ def test_append_in_the_same_transaction_is_valid_and_finds_the_new_items(tmp_pat
     w.add_items(np.arange(N, N + half), extra[:half])
     with tracing.record() as spans:
         w.builder(seed=42).build()
-    assert "load_graph" in {s.name for s in spans}  # a dirty transaction reloads
+    assert "load_graph" not in {s.name for s in spans}  # the committed graph, forked
+    assert [s.fields["graph_reused"] for s in spans if s.name == "build_prologue"] == [1]
     w.add_items(np.arange(N + half, N + N_APPEND), extra[half:])
     with tracing.record() as spans:
         stats = w.builder(seed=42).build()
@@ -593,3 +595,386 @@ def test_readonly_database_sees_commits_after_refresh(tmp_path):
     ro.close()
     live.close()
     live.close()  # closing twice is harmless
+
+
+# --------------------------------------------------------------------------
+# (f) the graph a build starts from: a fork of the committed one
+# --------------------------------------------------------------------------
+
+
+def _graph_at_build(monkeypatch):
+    """Copies of every graph that ``build_graph`` is handed, as handed."""
+    seen = []
+    real = api._builder.build_graph
+
+    def capture(g, *a, **kw):
+        seen.append(copy.deepcopy(g))
+        return real(g, *a, **kw)
+
+    monkeypatch.setattr(api._builder, "build_graph", capture)
+    return seen
+
+
+def _prologue_reused(spans) -> list[int]:
+    return [s.fields["graph_reused"] for s in spans if s.name == "build_prologue"]
+
+
+def _rows_by_item(g: hnsw.HostGraph) -> dict:
+    """Each item's level, vector, norm and, per layer, its neighbours' ids
+    with their link distances: a graph keyed by item id, not by slot."""
+    out = {}
+    for item, s in g.id_to_slot.items():
+        layers = []
+        for level in range(int(g.levels[s]) + 1):
+            if level == 0:
+                links, dists = g.links0[s], g.dists0[s]
+            else:
+                r = g.slot_rows[level - 1][s]
+                links, dists = g.upper_links[level - 1][r], g.upper_dists[level - 1][r]
+            layers.append({int(g.ids[t]): float(d) for t, d in zip(links, dists) if t >= 0})
+        out[item] = (int(g.levels[s]), g.vectors[s].tobytes(), float(g.norms[s]), layers)
+    return out
+
+
+def _live_link_dists(g: hnsw.HostGraph) -> np.ndarray:
+    parts = [g.dists0[g.links0 >= 0]]
+    parts += [d[:n][l[:n] >= 0] for l, d, n in zip(g.upper_links, g.upper_dists, g.upper_row_count)]
+    return np.concatenate(parts)
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("case", ["append", "overwrite", "append_after_bulk"])
+def test_a_fork_of_the_committed_graph_builds_what_the_store_load_builds(tmp_path, monkeypatch, backend, case):
+    """The same append through a Database that keeps its committed graph
+    (the build forks it) and through a reopened one (``HostGraph.load`` +
+    ``fill_link_dists``): the graphs handed to ``build_graph`` agree item by
+    item, link distances to 1e-5, and the stores agree record for record.
+    ``overwrite`` also re-adds 20 built items with new vectors;
+    ``append_after_bulk`` starts from a bulk build, whose renumbered slots
+    differ from the order the store loads them in."""
+    extra = _data(N_APPEND, seed=9)
+    ids = np.arange(N, N + N_APPEND)
+    if case == "overwrite":
+        extra = np.concatenate([extra, _data(20, seed=10)])
+        ids = np.concatenate([ids, np.arange(100, 120)])
+    graphs, scans = {}, {}
+    for route in ("fork", "load"):
+        seen = _graph_at_build(monkeypatch)
+        db, _ = _write(hannoy_tpu_torch, tmp_path / route, "cosine", np.arange(N), _data(), backend=backend,
+                       bulk=True if case == "append_after_bulk" else None)
+        if route == "load":
+            db.close()
+            db = _open(hannoy_tpu_torch, tmp_path / route, "cosine", backend=backend)
+        w = db.writer(D, m=M, ef=EF)
+        w.add_items(ids, extra)
+        with tracing.record() as spans:
+            w.builder(seed=42).build()
+        assert db.commit_rw_txn()
+        assert _prologue_reused(spans) == [int(route == "fork")]
+        assert ("load_graph" in {s.name for s in spans}) == (route == "load")
+        graphs[route], scans[route] = seen[-1], _scan(db)
+        db.reader().assert_validity()
+        db.close()
+    fork, load = _rows_by_item(graphs["fork"]), _rows_by_item(graphs["load"])
+    assert fork.keys() == load.keys() == set(range(N + N_APPEND))
+    new = set(range(N, N + N_APPEND))
+    assert all(not any(fork[i][3]) and not any(load[i][3]) for i in new)  # staged, not linked yet
+    for item in sorted(fork.keys() - new):
+        (lf, vf, nf, rf), (ll, vl, nl, rl) = fork[item], load[item]
+        assert (lf, vf, nf) == (ll, vl, nl), item
+        assert [r.keys() for r in rf] == [r.keys() for r in rl], item
+        for a, b in zip(rf, rl):
+            np.testing.assert_allclose(list(a.values()), [b[k] for k in a], rtol=0, atol=1e-5)
+    for route in ("fork", "load"):
+        g = graphs[route]
+        assert [int(g.ids[s]) for s in g.entry_slots] == [int(graphs["load"].ids[s]) for s in graphs["load"].entry_slots]
+        assert np.isfinite(_live_link_dists(g)).all()
+    assert [k for k, _ in scans["fork"]] == [k for k, _ in scans["load"]]
+    differing = [k for (k, a), (_, b) in zip(scans["fork"], scans["load"]) if a != b]
+    assert not differing, (len(differing), len(scans["load"]))
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_the_committed_graph_outlives_the_next_transaction(tmp_path, monkeypatch, backend):
+    """A Reader opened after commit n serves commit n while transaction
+    n+1 adds and builds, and after it aborts; the committed graph in the
+    cache is never written, so the next build and ``Reader.open`` start from
+    it as it was committed."""
+    data = _data()
+    queries = _data(16, seed=3)
+    db, _ = _write(hannoy_tpu_torch, tmp_path / "t", "cosine", np.arange(N), data, backend=backend)
+    r = db.reader()
+    committed = db._env._graph_cache[(db._db.name, 0)].graph
+    assert r._graph is committed
+    snap = copy.deepcopy(committed)
+    answers, ids_before = r.by_vecs(queries, n=10, ef_search=64), r.item_ids().to_array()
+
+    def unchanged(cached=True):
+        assert r.n_items() == N and np.array_equal(r.item_ids().to_array(), ids_before)
+        assert r.by_vecs(queries, n=10, ef_search=64) == answers
+        assert r.by_vec(data[7], n=1, ef_search=64)[0][0] == 7
+        assert r._graph is committed and _rows_by_item(committed) == _rows_by_item(snap)
+        assert committed.capacity == snap.capacity and committed.entry_slots == snap.entry_slots
+        entry = db._env._graph_cache.get((db._db.name, 0))
+        assert (entry is not None and entry.graph is committed) == cached
+
+    w = db.writer(D, m=M, ef=EF)
+    w.add_items(np.arange(N, N + N_APPEND), _data(N_APPEND, seed=9))
+    w.add_items(np.arange(10), _data(10, seed=4))  # rewritten rows of built items
+    w.builder(seed=42).build()
+    unchanged()
+    assert db.abort_rw_txn()
+    unchanged()
+    r2 = db.reader()
+    assert r2._graph is committed and r2.n_items() == N
+
+    seen = _graph_at_build(monkeypatch)
+    w = db.writer(D, m=M, ef=EF)
+    w.add_items(np.arange(N, N + 50), _data(50, seed=11))
+    with tracing.record() as spans:
+        w.builder(seed=42).build()
+    assert _prologue_reused(spans) == [1]
+    started = _rows_by_item(seen[0])
+    assert {i: started[i] for i in range(N)} == _rows_by_item(snap)
+    unchanged()
+    assert db.commit_rw_txn()
+    unchanged(cached=False)  # the old Reader keeps its snapshot; the cache the new commit's graph
+    r3 = db.reader()
+    assert r3.n_items() == N + 50 and r3._graph is not committed
+    r3.assert_validity()
+    db.close()
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_a_fork_shares_the_committed_rows_and_writes_none_of_them(tmp_path, backend):
+    """An append's fork shares the committed graph's ``vectors`` and
+    ``norms``; a build that writes a row the committed graphs hold (an
+    overwrite; a slot a deletion freed earlier in the same transaction)
+    copies them first. No committed graph's row changes, neither the last
+    commit's nor the one an older Reader still serves."""
+    db, _ = _write(hannoy_tpu_torch, tmp_path / "t", "cosine", np.arange(N), _data(), backend=backend)
+    key = (db._db.name, 0)
+    r0 = db.reader()
+    g0 = r0._graph
+    snap0 = _rows_by_item(g0)
+    w = db.writer(D, m=M, ef=EF)
+    w.add_items(np.arange(N, N + 50), _data(50, seed=9))
+    w.builder(seed=42).build()
+    assert db.commit_rw_txn()
+    g1 = db._env._graph_cache[key].graph
+    assert np.shares_memory(g1.vectors, g0.vectors)
+    snap1 = _rows_by_item(g1)
+
+    def unchanged():
+        assert _rows_by_item(g0) == snap0 and _rows_by_item(g1) == snap1
+        assert r0.by_vec(_data()[7], n=1, ef_search=64)[0][0] == 7
+
+    w.add_items(np.arange(10, 15), _data(5, seed=10))  # overwrites
+    w.builder(seed=42).build()
+    assert not np.shares_memory(db._env._shared_wtxn._pending_graphs[key].graph.vectors, g1.vectors)
+    unchanged()
+    assert db.abort_rw_txn()
+    w.add_items(np.arange(N + 50, N + 60), _data(10, seed=11))
+    w.builder(seed=42).build()
+    pending = db._env._shared_wtxn._pending_graphs[key].graph
+    assert np.shares_memory(pending.vectors, g1.vectors)
+    assert w.del_item(20)
+    w.builder(seed=42).build()  # the transaction's own graph: slot of item 20 freed
+    w.add_items([N + 60], _data(1, seed=12))
+    w.builder(seed=42).build()  # item N + 60 takes item 20's slot
+    assert pending.id_to_slot[N + 60] == g1.id_to_slot[20]
+    assert not np.shares_memory(pending.vectors, g1.vectors)
+    unchanged()
+    assert db.commit_rw_txn()
+    unchanged()
+    r = db.reader()
+    r.assert_validity()
+    assert r.n_items() == N + 60 and r.by_vec(_data(1, seed=12)[0], n=1, ef_search=64)[0][0] == N + 60
+    db.close()
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_a_cancelled_build_leaves_the_committed_graph(tmp_path, backend):
+    """``BuildCancelled`` inside the waves: the transaction keeps no graph,
+    the cache keeps the committed one as it was, and after the abort the
+    same append builds what it builds on a Database that never cancelled."""
+    db, _ = _write(hannoy_tpu_torch, tmp_path / "t", "cosine", np.arange(N), _data(), backend=backend)
+    key = (db._db.name, 0)
+    committed = db._env._graph_cache[key].graph
+    snap = _rows_by_item(committed)
+    extra = _data(N_APPEND, seed=9)
+    w = db.writer(D, m=M, ef=EF)
+    w.add_items(np.arange(N, N + N_APPEND), extra)
+    calls = iter(range(10**6))
+    with pytest.raises(errors.BuildCancelled):
+        w.builder(seed=42).cancel(lambda: next(calls) >= 3).build()
+    assert key not in getattr(db._env._shared_wtxn, "_pending_graphs", {})
+    entry = db._env._graph_cache.get(key)
+    assert entry is None or (entry.graph is committed and _rows_by_item(committed) == snap)
+    assert db.abort_rw_txn()
+    w = db.writer(D, m=M, ef=EF)
+    w.add_items(np.arange(N, N + N_APPEND), extra)
+    w.builder(seed=42).build()
+    assert db.commit_rw_txn()
+    got = _scan(db)
+    db.close()
+    never, _ = _write(hannoy_tpu_torch, tmp_path / "never", "cosine", np.arange(N), _data(), backend=backend)
+    w = never.writer(D, m=M, ef=EF)
+    w.add_items(np.arange(N, N + N_APPEND), extra)
+    w.builder(seed=42).build()
+    assert never.commit_rw_txn()
+    assert _scan(never) == got
+    never.close()
+
+
+def test_a_second_build_in_the_first_transaction_takes_its_own_graph(tmp_path):
+    """With nothing committed yet, a second build in the transaction starts
+    from the first one's graph, not from the store."""
+    data, extra = _data(), _data(N_APPEND, seed=9)
+    db = _open(hannoy_tpu_torch, tmp_path / "t", "cosine")
+    w = db.writer(D, m=M, ef=EF)
+    w.add_items(np.arange(N), data)
+    w.builder(seed=42).build()
+    w.add_items(np.arange(N, N + N_APPEND), extra)
+    with tracing.record() as spans:
+        w.builder(seed=42).build()
+    assert "load_graph" not in {s.name for s in spans} and _prologue_reused(spans) == [1]
+    assert db.commit_rw_txn()
+    r = db.reader()
+    r.assert_validity()
+    assert [row[0][0] for row in r.by_vecs(extra, n=1, ef_search=64)] == list(range(N, N + N_APPEND))
+    db.close()
+
+
+def test_a_deletion_in_the_journal_loads_the_graph(tmp_path):
+    """The deletion repair reads a deleted item's ghost slot, which only
+    ``HostGraph.load`` makes: a journal that deletes a built item loads."""
+    data = _data()
+    db, _ = _write(hannoy_tpu_torch, tmp_path / "t", "cosine", np.arange(N), data)
+    w = db.writer(D, m=M, ef=EF)
+    assert w.del_item(3)
+    w.add_items(np.arange(N, N + 50), _data(50, seed=9))
+    with tracing.record() as spans:
+        w.builder(seed=42).build()
+    assert db.commit_rw_txn()
+    assert "load_graph" in {s.name for s in spans} and _prologue_reused(spans) == [0]
+    r = db.reader()
+    r.assert_validity()
+    assert r.n_items() == N + 49 and not r.contains_item(3)
+    db.close()
+
+
+def test_a_committed_graph_of_another_tier_is_not_reused(tmp_path):
+    """Two Database handles on one path share the committed graph; its
+    link distances are of the tier that built it, so a Writer of another
+    tier loads the graph from the store."""
+    raw, _ = _write(hannoy_tpu_torch, tmp_path / "t", "cosine", np.arange(N), _data())
+    bf16 = _open(hannoy_tpu_torch, tmp_path / "t", "cosine", tier="bf16")
+    assert bf16._env is raw._env
+    for k, db in enumerate((bf16, raw)):
+        w = db.writer(D, m=M, ef=EF)
+        w.add_items(np.arange(N + 50 * k, N + 50 * (k + 1)), _data(50, seed=9 + k))
+        with tracing.record() as spans:
+            w.builder(seed=42).build()
+        assert db.commit_rw_txn()
+        assert "load_graph" in {s.name for s in spans} and _prologue_reused(spans) == [0]
+        assert db._env._graph_cache[(db._db.name, 0)].dists_tier == db.tier
+    r = raw.reader()
+    r.assert_validity()
+    assert r.n_items() == N + 100
+    raw.close()
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_an_append_after_reopen_forks_the_readers_graph_and_fills_its_distances(tmp_path, monkeypatch, backend):
+    """A reopened Database whose Reader loaded the graph (link distances
+    unknown, NaN): the append forks it and recomputes the distances, with
+    no ``load_graph``, and writes the records a reopen without a Reader
+    writes."""
+    extra = _data(N_APPEND, seed=9)
+    scans = {}
+    for route in ("reader", "none"):
+        db, _ = _write(hannoy_tpu_torch, tmp_path / route, "cosine", np.arange(N), _data(), backend=backend)
+        db.close()
+        db = _open(hannoy_tpu_torch, tmp_path / route, "cosine", backend=backend)
+        if route == "reader":
+            loaded = db.reader()._graph
+            assert np.isnan(loaded.dists0[loaded.links0 >= 0]).all()
+        seen = _graph_at_build(monkeypatch)
+        w = db.writer(D, m=M, ef=EF)
+        w.add_items(np.arange(N, N + N_APPEND), extra)
+        with tracing.record() as spans:
+            w.builder(seed=42).build()
+        assert db.commit_rw_txn()
+        names = {s.name for s in spans}
+        if route == "reader":
+            assert _prologue_reused(spans) == [1] and "load_graph" not in names
+            assert {"fork_graph", "fill_link_dists"} <= names
+            assert np.isnan(loaded.dists0[loaded.links0 >= 0]).all()  # the Reader's graph stays as loaded
+        else:
+            assert _prologue_reused(spans) == [0] and "load_graph" in names
+        assert np.isfinite(_live_link_dists(seen[0])).all()
+        r = db.reader()
+        r.assert_validity()
+        assert [row[0][0] for row in r.by_vecs(extra, n=1, ef_search=64)] == list(range(N, N + N_APPEND))
+        scans[route] = _scan(db)
+        db.close()
+    assert scans["reader"] == scans["none"]
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_a_rebuild_in_the_building_transaction_starts_empty(tmp_path, backend):
+    """``build()`` then ``force_rebuild()`` in one transaction relinks every
+    item from an empty graph, not from the one the build left, and writes
+    the records of a ``force_rebuild()`` after the build's commit."""
+    extra = _data(N_APPEND, seed=9)
+    scans = {}
+    for route in ("same", "after"):
+        db, _ = _write(hannoy_tpu_torch, tmp_path / route, "cosine", np.arange(N), _data(), backend=backend)
+        w = db.writer(D, m=M, ef=EF)
+        w.add_items(np.arange(N, N + N_APPEND), extra)
+        w.builder(seed=42).build()
+        if route == "after":
+            assert db.commit_rw_txn()
+        with tracing.record() as spans:
+            w.builder(seed=42).force_rebuild()
+        assert _prologue_reused(spans) == [0] and "load_graph" not in {s.name for s in spans}
+        assert db.commit_rw_txn()
+        r = db.reader()
+        r.assert_validity()
+        assert r.n_items() == N + N_APPEND
+        scans[route] = _scan(db)
+        db.close()
+    assert scans["same"] == scans["after"]
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_a_clear_in_the_building_transaction_drops_its_graph(tmp_path, backend):
+    """``build()``, ``clear()``, ``add_items()``, ``build()`` in one
+    transaction: the commit serves the new items alone. ``build()`` then
+    ``clear()`` leaves no graph for the commit to keep."""
+    data, fresh = _data(), _data(N_APPEND, seed=9)
+    new_ids = np.arange(5000, 5000 + N_APPEND)
+    db, _ = _write(hannoy_tpu_torch, tmp_path / "t", "cosine", np.arange(N), data, backend=backend)
+    key = (db._db.name, 0)
+    w = db.writer(D, m=M, ef=EF)
+    w.add_items(np.arange(N, N + 50), _data(50, seed=10))
+    w.builder(seed=42).build()
+    w.clear()
+    w.add_items(new_ids, fresh)
+    with tracing.record() as spans:
+        w.builder(seed=42).build()
+    assert _prologue_reused(spans) == [0]
+    assert db.commit_rw_txn()
+    r = db.reader()
+    r.assert_validity()
+    assert r.n_items() == N_APPEND and np.array_equal(r.item_ids().to_array(), new_ids)
+    assert [row[0][0] for row in r.by_vecs(fresh, n=1, ef_search=64)] == new_ids.tolist()
+    assert all(i >= 5000 for row in r.by_vecs(data[:32], n=10, ef_search=64) for i, _ in row)
+
+    w.add_items(np.arange(10), data[:10])
+    w.builder(seed=42).build()
+    w.clear()
+    assert db.commit_rw_txn()
+    assert key not in db._env._graph_cache and w.is_empty() and not _scan(db)
+    db.close()

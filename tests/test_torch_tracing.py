@@ -168,11 +168,31 @@ def test_a_build_nests_its_plan_and_upload_and_counts_its_waves(built):
     assert graph.parent is None and graph.fields["waves"] >= 1
     assert {"build_plan", "build_upload"} <= set(_children(spans, graph))
     prologue = _one(spans, "build_prologue")
+    assert prologue.fields == {"graph_reused": 0}
     load = _one(spans, "load_graph")
     assert load.parent == prologue.id
     assert _children(spans, prologue)[:1] == ["load_graph"]
     assert {"load_to_device", "fill_link_dists", "load_from_device"} <= set(_children(spans, prologue))
     assert _one(spans, "build_epilogue").parent is None
+
+
+def test_a_warm_append_forks_the_committed_graph_in_its_prologue(tmp_path):
+    db = Database(tmp_path / "db", Metric.COSINE, device="cpu")
+    w = db.writer(D, m=M, ef=EF)
+    w.add_items(np.arange(N), _data())
+    w.builder(seed=42).build()
+    db.commit_rw_txn()
+    w.add_items(np.arange(N, N + 50), _data(50, seed=1))
+    with tracing.record() as spans:
+        w.builder(seed=42).build()
+    db.commit_rw_txn()
+    db.close()
+    prologue = _one(spans, "build_prologue")
+    assert prologue.parent is None and prologue.fields == {"graph_reused": 1}
+    fork = _one(spans, "fork_graph")
+    assert fork.parent == prologue.id and fork.fields == {"items": N}
+    assert _children(spans, prologue) == ["fork_graph"]  # no load, no distances to fill
+    assert prologue.start_ns <= fork.start_ns <= fork.end_ns <= prologue.end_ns
 
 
 @pytest.mark.parametrize("backend", ["native", "python"])
