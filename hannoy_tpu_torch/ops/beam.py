@@ -176,6 +176,14 @@ def _on_kernel(g: DeviceGraph, expand: int = 1, traverse_k: Optional[int] = None
     ) == "kernel"
 
 
+def _beam_on_kernel(g: DeviceGraph, ef: int, level: int = 0, expand: int = 1, traverse_k: Optional[int] = None,
+                    tail_allow: int = 0) -> bool:
+    """Does ``beam_search`` on ``g`` with these settings take the kernel?"""
+    width = g.m0 if level == 0 else g.upper_links.shape[-1]
+    cut = traverse_k if traverse_k is not None and traverse_k < width else None
+    return _on_kernel(g, expand, cut, tail_allow, ef, width)
+
+
 def greedy_descend_loop(
     g: DeviceGraph,
     q: torch.Tensor,  # [B, D]
@@ -336,9 +344,7 @@ def beam_search(
     """
     if tail_allow is None:
         tail_allow = int(tail_frac * q.shape[0])
-    width = g.m0 if level == 0 else g.upper_links.shape[-1]
-    cut = traverse_k if traverse_k is not None and traverse_k < width else None
-    if _on_kernel(g, expand, cut, tail_allow, ef, width):  # expand == 1
+    if _beam_on_kernel(g, ef, level, expand, traverse_k, tail_allow):  # expand == 1
         return BeamResult(*search_cuda.beam_search_kernel(
             g, q, qn, start, ef, 2 * ef + 16 if max_iters is None else max_iters,
             g.valid if node_ok is None else node_ok, level, cancel, SYNC_EVERY,
@@ -580,10 +586,14 @@ def hnsw_search(
     ``_descend_start``. ``cancel`` is checked in the layer-0 beam, as the
     JAX package's ``hnsw_search_cancellable`` checks it between the
     beam's chunks (the descent runs whole); once it has returned True the
-    result is the pool so far."""
+    result is the pool so far. Span ``search_beam`` carries ``on_kernel``:
+    1 where the layer-0 beam runs on the search kernel, 0 on the host
+    loop."""
     with span("search_descend"):
         start = _descend_start(g, q, qn, ef_upper)
-    with span("search_beam"):
+    with span("search_beam") as sp:
+        if sp.recording:
+            sp.set(on_kernel=int(_beam_on_kernel(g, ef)))
         return beam_search(g, q, qn, start, ef, max_iters, cancel=cancel)
 
 
@@ -599,8 +609,10 @@ def hnsw_search_filtered(
 ) -> BeamResult:
     """``hnsw_search`` with a candidates filter: the descent ignores the
     mask (upper layers route, reader.rs:739-752), the layer-0 beam is
-    ``beam_search_filtered``. ``cancel`` as in ``hnsw_search``."""
+    ``beam_search_filtered``. ``cancel`` as in ``hnsw_search``; so are the
+    spans, the filtered beam always on the host loop."""
     with span("search_descend"):
         start = _descend_start(g, q, qn, ef_upper)
-    with span("search_beam"):
+    with span("search_beam") as sp:
+        sp.set(on_kernel=0)
         return beam_search_filtered(g, q, qn, start, ef, candidate_mask, max_iters, cancel=cancel)

@@ -148,6 +148,71 @@ def test_a_search_call_is_one_tree(built, call):
         assert top is root and root.start_ns <= s.start_ns <= s.end_ns <= root.end_ns
 
 
+def _hamming_reader(path):
+    """A committed 600-item hamming database (16 sign bits an item) on the
+    CPU → (db, reader)."""
+    db = Database(path, Metric.HAMMING, device="cpu")
+    w = db.writer(D, m=M, ef=EF)
+    w.add_items(np.arange(N), _data())
+    w.builder(seed=42).build()
+    db.commit_rw_txn()
+    return db, db.reader()
+
+
+def _beam_route(reader, queries, candidates=None):
+    """``on_kernel`` of ``search_beam`` in one ``by_vectors`` call, with a
+    filter where ``candidates`` is given (the descent carries no such
+    counter)."""
+    query = reader.nns(10).ef_search(EF)
+    if candidates is not None:
+        query = query.candidates(candidates).linear_below(0)  # the graph, not a scan
+    with tracing.record() as spans:
+        query.by_vectors(queries)
+    assert "on_kernel" not in _one(spans, "search_descend").fields
+    return _one(spans, "search_beam").fields["on_kernel"]
+
+
+@pytest.mark.parametrize("metric", ["cosine", "cosine-filtered", "hamming"])
+def test_a_search_on_the_cpu_records_the_host_loop(built, tmp_path, metric):
+    if metric == "hamming":
+        db, reader = _hamming_reader(tmp_path / "db")
+    else:
+        db, reader = None, built[0].reader()
+    candidates = range(0, N, 2) if metric == "cosine-filtered" else None
+    assert _beam_route(reader, _data(8, seed=3), candidates) == 0
+    if db is not None:
+        db.close()
+
+
+@pytest.mark.cuda
+def test_on_the_card_cosine_runs_on_the_kernels_and_hamming_on_the_host_loop(tmp_path):
+    """A cosine f32 search records 1 and launches the search kernels; a
+    filtered cosine search records 0 (its beam is the host loop); a
+    hamming search records 0 and launches none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from hannoy_tpu_torch.ops import search_cuda
+
+    found = {}
+    for metric in ("cosine", "hamming"):
+        db = Database(tmp_path / metric, Metric(metric), device="cuda")
+        w = db.writer(D, m=M, ef=EF)
+        w.add_items(np.arange(N), _data())
+        w.builder(seed=42).build()
+        db.commit_rw_txn()
+        reader = db.reader()
+        before = sum(search_cuda.KERNELS.launches.values())
+        found[metric] = _beam_route(reader, _data(8, seed=3)), sum(search_cuda.KERNELS.launches.values()) - before
+        if metric == "cosine":
+            before = sum(search_cuda.KERNELS.launches.values())
+            routes = _beam_route(reader, _data(8, seed=3), range(0, N, 2))
+            found["filtered"] = routes, sum(search_cuda.KERNELS.launches.values()) - before
+        db.close()
+    assert found["cosine"][0] == 1 and found["cosine"][1] >= 2
+    assert found["filtered"][0] == 0
+    assert found["hamming"] == (0, 0)
+
+
 def test_a_build_nests_its_plan_and_upload_and_counts_its_waves(built):
     _, path = built
     # a reopened database loads its graph from the store in the prologue
