@@ -80,7 +80,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    and held to the same bar; and the migration: a cosine database of the
    100k → ``prepare_changing_distance(Metric.BQ_COSINE)`` (the fast path:
    the links records must all survive the prepare) → ``build()`` →
-   commit → search, recall as above;
+   commit → search, recall as above; and HAMMING at 1,536 bits on 100k
+   items of 1,536 dimensions (``bench_data``, seed 44) with M 16 and efc
+   64, the benchmark's hamming cell's shape: build → commit → search,
+   recall as above, then phase 13 on it;
 8. the storage tiers through the API at the same size: cosine with
    ``tier="bf16"`` and ``tier="int8"``, euclidean with ``"raw"``, ``"bf16"``
    and ``"int8"``: add → build → commit → Reader → ``by_vecs`` at ef 100,
@@ -164,14 +167,17 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 13. the search kernels (``csrc/search.cu``: the beam search and the
    greedy descent, each one launch for a batch), which serve every search
-   of dense rows on the card: first, on stores built on the card that no
+   of dense rows, and of packed rows of whole 16-byte units, on the card: first, on stores built on the card that no
    other phase holds — one row (ef 10), 40 items searched at ef 64 (a
    pool that never fills), 3,000 euclidean and 3,000 cosine items with NaN
    rows on the walks and then at an entry point — the kernels equal the
    host loop
    (``beam.beam_search_loop``, ``greedy_descend_loop``, called directly)
    and their plain versions (``search_cuda.*_rowwise``) bit for bit; then
-   on the Readers of phase 6 (100k f32 cosine), of every phase-8 cell
+   on the Readers of phase 6 (100k f32 cosine), of phase 7 (100k BQ cosine
+   at 768 bits, and 100k hamming at 1,536 bits with M 16 and efc 64, the
+   shape of the benchmark's hamming cell: the packed form), of every
+   phase-8 cell
    (bf16 and int8 cosine, euclidean raw / bf16 / int8, euclidean raw by
    waves) and of phase 12 (1M f32 cosine): ``hnsw_search`` at ef 100 by
    at most 3 launches of them and none of the gather kernel, equal bit for
@@ -190,15 +196,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    row and every hop's link row read anew, from its per-row counters),
    hops per row and µs per hop, the split of a hop (one more call with
    ``clocks=``: the cycles thread 0 of each block spent in each stage,
-   per hop), and once per form (f32 cosine at 1M) the
+   per hop), and once per form (f32 cosine at 1M; packed rows on the
+   1,536-bit hamming Reader) the
    plain versions of the greedy descent and the layer-0 beam on the
    batch's first 16 rows; and at phases 6 and 12 ``by_vecs`` in turns (kernels,
    host loop, host loop, kernels: the same answers at every ef, QPS) with
    one profiled window of each (5 calls in a row: the idle share). Every
    ``hnsw_search`` and ``descend_for_slots`` of phases 4-12 is watched:
-   each one on dense rows must launch the search kernels and no gather
-   kernel (a search without a cancel at most 3 launches), each on packed
-   rows none of them.
+   each one on dense rows, or on packed rows of whole 16-byte units (768
+   bits: 24 lanes), must launch the search kernels and no gather kernel (a
+   search without a cancel at most 3 launches), each on other rows none of
+   them.
 
 The build seconds of phases 4 and 5 are the wall time of an unfenced
 ``build_graph``, ended by one ``torch.cuda.synchronize()``. The kernels'
@@ -281,6 +289,9 @@ PAST_L2_METRICS = ("hamming", "binary quantized cosine")
 FLOOR_LAUNCHES = 1024
 #: phase 7: items of the HAMMING wave build
 N_HAMMING = 20_000
+#: phase 7: the benchmark's hamming cell's shape (ada-002 as 1,536 sign
+#: bits, M 16, efc 64) on N items: phase 13's packed headline
+HAMMING_DIM, HAMMING_EFC = 1536, 64
 #: phase 8: (metric, tier, build) cells; euclidean "raw" gives the f32
 #: figures. "default" takes the bulk path; "waves" (``bulk(False)``) is
 #: there to tell apart what lowers euclidean f32 recall: the graph, the
@@ -636,22 +647,22 @@ def scale_store_cases(gen, device) -> list[dict]:
                         DIM * 4, DIM * 4, DIM * 2) for b, k in SCALE_STORE_SHAPES]
 
 
-def bench_data(rng: np.random.Generator, n: int = 0) -> tuple[np.ndarray, np.ndarray]:
-    """``bench.py``'s clustered synthetic data: ``n`` items (``N`` when 0),
-    a Gaussian mixture with n//256 centres, plus queries drawn around the
-    same centres."""
+def bench_data(rng: np.random.Generator, n: int = 0, dim: int = DIM) -> tuple[np.ndarray, np.ndarray]:
+    """``bench.py``'s clustered synthetic data: ``n`` items (``N`` when 0)
+    of ``dim`` dimensions, a Gaussian mixture with n//256 centres, plus
+    queries drawn around the same centres."""
     n = n or N
     n_clusters = max(32, n // 256)
-    centers = rng.standard_normal((n_clusters, DIM)).astype(np.float32) * 4.0
+    centers = rng.standard_normal((n_clusters, dim)).astype(np.float32) * 4.0
     assign = rng.integers(0, n_clusters, size=n)
     # in chunks of rows: the same draws in the same order, and the same
-    # sums, as one (n, DIM) draw, without its float64 temporaries
-    data = np.empty((n, DIM), dtype=np.float32)
+    # sums, as one (n, dim) draw, without its float64 temporaries
+    data = np.empty((n, dim), dtype=np.float32)
     for p0 in range(0, n, 65536):
         a = assign[p0 : p0 + 65536]
-        data[p0 : p0 + 65536] = centers[a] + rng.standard_normal((len(a), DIM))
+        data[p0 : p0 + 65536] = centers[a] + rng.standard_normal((len(a), dim))
     q_assign = rng.integers(0, n_clusters, size=N_QUERIES)
-    queries = (centers[q_assign] + rng.standard_normal((N_QUERIES, DIM))).astype(np.float32)
+    queries = (centers[q_assign] + rng.standard_normal((N_QUERIES, dim))).astype(np.float32)
     return data, queries
 
 
@@ -811,8 +822,9 @@ def watch_searches() -> None:
 
 
 def check_search_calls() -> dict:
-    """Every watched call in the search kernels' scope (dense rows on the
-    card) went through them: no launch of the gather kernel inside it, and
+    """Every watched call in the search kernels' scope (dense rows, and
+    packed rows of the pair design, on the card) went through them: no
+    launch of the gather kernel inside it, and
     an ``hnsw_search`` without a cancel at most 3 launches (the greedy
     descent, the layer-1 and the layer-0 beam); one out of scope launched
     none of them. → a summary per entry point."""
@@ -1275,7 +1287,9 @@ def search_entries() -> list[dict]:
               f"loop {head['host_loop_ms']:.3f} ms, plain {head['plain_ms']:.3f} ms on {head['plain_rows']} rows", flush=True)
         entries.append({
             "name": f"{kernel}[{form}]", "route": "cuda", "source": "hannoy_tpu_torch/csrc/search.cu",
-            "design": "staged hop",  # a hop's rows staged at once, rank and merge by counts, three barriers (one a step)
+            # dense rows: a hop's rows staged at once, rank and merge by counts,
+            # three barriers (one a step); packed rows: straight into registers
+            "design": "register hop" if row == "packed" else "staged hop",
             "replaces": replaces[kernel], "launches": launches,
             "shape": head["shape"], "store_rows": head["store_rows"], "max_abs_err": head["max_abs_err"],
             "ms": head["ms"], "plain_ms": head["plain_ms"], "plain_rows": head["plain_rows"],
@@ -1664,7 +1678,7 @@ def _n_links_records(db) -> int:
 def packed_path(device, data, queries, card: str) -> dict:
     """Phase 7: the packed metrics through Database / Writer / Reader."""
     from hannoy_tpu_torch import Database, Metric
-    from hannoy_tpu_torch.ops import beam_cuda, codecs, distances
+    from hannoy_tpu_torch.ops import beam_cuda, codecs, distances, search_cuda
     from hannoy_tpu_torch.utils import tracing
 
     label = "phase 7: packed API path"
@@ -1679,9 +1693,12 @@ def packed_path(device, data, queries, card: str) -> dict:
         return _timed(label, card, device, what, fn)
 
     def need_form(step: str, forms: dict, form: str = "packed/popcount") -> None:
-        if set(forms) != {form}:
-            raise AssertionError(f"[{label}] {step} launched {forms}, expected only {form}")
-        out["launches"][step] = forms[form]
+        # the gather kernel's launches and the search kernels' (packed rows of
+        # the pair design search on the kernels, the builds gather)
+        searched = {f"{row}/{family}" for _, row, family in search_cuda.KERNELS.by_form}
+        if set(forms) | searched != {form}:
+            raise AssertionError(f"[{label}] {step} launched {forms} (gather) and {searched} (search), expected only {form}")
+        out["launches"][step] = forms.get(form, 0)
 
     # ---- (a) BQ cosine, 100k: add → bulk build → commit → search → reopen ----
     metric = distances.BQ_COSINE
@@ -1737,6 +1754,9 @@ def packed_path(device, data, queries, card: str) -> dict:
         if recall < RECALL_BAR:
             raise AssertionError(f"[{label}] BQ cosine recall@10 {recall} below {RECALL_BAR}")
         need_form("bq_reopen_and_search", count_main_path(f"{label}: BQ reopen and search"))
+        # phase 13 on this database: the search kernels' packed form at 768
+        # bits (its plain versions are timed on (d)'s shape)
+        out["search_kernels"] = search_kernel_checks("phase 13 on phase 7's BQ cosine database", reader, queries, card)
         db.close()
 
     # ---- (b) HAMMING, 20k, insertion waves: the packed wave hop and flat candidates ----
@@ -1799,6 +1819,35 @@ def packed_path(device, data, queries, card: str) -> dict:
         if recall < RECALL_BAR or reader.n_items() != N:
             raise AssertionError(f"[{label}] migrated recall@10 {recall} below {RECALL_BAR}, or {reader.n_items()} items")
         need_form("migration_build_and_search", count_main_path(f"{label}: migration build and search"))
+        db.close()
+
+    # ---- (d) HAMMING at 1,536 bits, M 16, efc 64: the benchmark's hamming cell's shape ----
+    metric = distances.HAMMING
+    wide, wide_queries = bench_data(np.random.default_rng(44), dim=HAMMING_DIM)
+    with tempfile.TemporaryDirectory() as path:
+        reset_counts()
+        db = Database(path, Metric.HAMMING, map_size=API_MAP_SIZE)
+        writer = db.writer(dimensions=HAMMING_DIM, m=M, ef=HAMMING_EFC)
+        writer.add_items(range(N), wide)
+        del wide
+        _, out["seconds"]["hamming_1536_build"] = timed(
+            f"HAMMING build of {N} x {HAMMING_DIM} (M {M}, efc {HAMMING_EFC})", lambda: writer.builder(seed=42).build())
+        db.commit_rw_txn()
+        reader = db.reader()
+        if reader._dev.vectors.shape[1] != HAMMING_DIM // 32:
+            raise AssertionError(f"[{label}] HAMMING rows on the device are {tuple(reader._dev.vectors.shape)}")
+        answers = reader.by_vecs(wide_queries, n=K, ef_search=ef)
+        recall = out["recall_at_10"]["hamming_1536"] = _tie_aware_recall(label, reader, wide_queries, answers, metric)
+        print(f"[{label}] HAMMING {N} x {HAMMING_DIM}: recall@10 at ef={ef} {recall:.4f}; search launches "
+              f"{dict(search_cuda.KERNELS.launches)}", flush=True)
+        if recall < RECALL_BAR:
+            raise AssertionError(f"[{label}] HAMMING recall@10 at {HAMMING_DIM} bits {recall} below {RECALL_BAR}")
+        need_form("hamming_1536_build_and_search", count_main_path(f"{label}: HAMMING build and search at 1,536 bits"))
+        # phase 13 on this database: the packed form at [256, 100, 32, 48],
+        # its plain versions timed (the packed entries' headline)
+        out["search_kernels_hamming_1536"] = search_kernel_checks(
+            f"phase 13 on phase 7's {HAMMING_DIM}-bit HAMMING database", reader, wide_queries, card, plain_timing=True)
+        PLAIN_TIMED.add("packed/popcount")
         db.close()
     return out
 

@@ -311,23 +311,6 @@ gather_staged_kernel(const ROW* __restrict__ vectors,
   }
 }
 
-// The packed epilogue: the distance from the popcount pc of a row of
-// `lanes` 32-bit lanes; `prod` = qn * norm (read by BQ cosine only).
-template <int METRIC>
-__device__ __forceinline__ float packed_distance(int pc, int lanes, float prod) {
-  const float pcf = static_cast<float>(pc);
-  const float d_pad = static_cast<float>(lanes) * 32.f;
-  if (METRIC == kHamming) return pcf / d_pad;
-  if (METRIC == kBqEuclidean) return 4.f * pcf;
-  if (METRIC == kBqManhattan) return 2.f * pcf;
-  const float cosv = (d_pad - 2.f * pcf) / (prod != 0.f ? prod : 1.f);
-  return prod != 0.f ? (1.f - cosv) * 0.5f : 0.f;
-}
-
-__device__ __forceinline__ int popc_xor(const uint4& a, const uint4& c) {
-  return __popc(a.x ^ c.x) + __popc(a.y ^ c.y) + __popc(a.z ^ c.z) + __popc(a.w ^ c.w);
-}
-
 // Packed rows that are whole 16-byte units from aligned bases (768 bits:
 // six units), kPairThreads threads a (b, k) pair: a block takes
 // blockDim.x / kPairThreads consecutive pairs, and thread h of a pair takes

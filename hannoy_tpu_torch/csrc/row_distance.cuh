@@ -1,7 +1,8 @@
-// One row's distance to a query, as every dense kernel of the port computes
-// it: gather_distances.cu's staged design, and search.cu's beam search and
-// greedy descent; and the asynchronous copies that stage rows in shared
-// memory for both sources. Each of them calls row_partial and warp_sum below, so a
+// One row's distance to a query, as every kernel of the port computes it:
+// gather_distances.cu's staged and packed designs, and search.cu's beam
+// search and greedy descent; and the asynchronous copies that stage rows in
+// shared memory for both sources. Each dense form calls row_partial and
+// warp_sum below, each packed form popc_xor and packed_distance, so a
 // distance has the same bits whichever kernel computed it, and the search
 // kernels can be held to exact equality with the host loop that calls the
 // gather kernel hop by hop.
@@ -222,6 +223,30 @@ __device__ __forceinline__ void warp_sum(float (&part)[R]) {
 #pragma unroll
     for (int j = 0; j < R; ++j) part[j] += __shfl_xor_sync(0xffffffffu, part[j], off);
   }
+}
+
+// ---- packed rows: 32-bit lanes of sign bits ----
+//
+// A packed row's distance is an integer popcount of the query's lanes xor
+// the row's, summed in any order, then one epilogue: gather_distances.cu's
+// pair and group designs and search.cu's packed form both end in
+// packed_distance, so their distances have the same bits.
+
+// The packed epilogue: the distance from the popcount pc of a row of
+// `lanes` 32-bit lanes; `prod` = qn * norm (read by BQ cosine only).
+template <int METRIC>
+__device__ __forceinline__ float packed_distance(int pc, int lanes, float prod) {
+  const float pcf = static_cast<float>(pc);
+  const float d_pad = static_cast<float>(lanes) * 32.f;
+  if (METRIC == kHamming) return pcf / d_pad;
+  if (METRIC == kBqEuclidean) return 4.f * pcf;
+  if (METRIC == kBqManhattan) return 2.f * pcf;
+  const float cosv = (d_pad - 2.f * pcf) / (prod != 0.f ? prod : 1.f);
+  return prod != 0.f ? (1.f - cosv) * 0.5f : 0.f;
+}
+
+__device__ __forceinline__ int popc_xor(const uint4& a, const uint4& c) {
+  return __popc(a.x ^ c.x) + __popc(a.y ^ c.y) + __popc(a.z ^ c.z) + __popc(a.w ^ c.w);
 }
 
 // ---- asynchronous copies into shared memory (the staged designs) ----

@@ -31,7 +31,7 @@
 // sized by ops/search_cuda.py:beam_shared (the routing rule and the launch
 // share it): the query in f32 as the metric reads it (bf16-rounded for
 // cosine on bf16 rows), the staging buffer (kWarps x S rows, S slots a
-// warp), the split's clocks, two copies of the pool (distance, id,
+// warp; packed rows have neither, see below), the split's clocks, two copies of the pool (distance, id,
 // expanded; written alternately by the merges), the hop's distances and
 // ids, and the warps' finds in the pool. Per row:
 //   1. seed: the seeds pass if >= 0 and node_ok, the first occurrence of
@@ -115,11 +115,30 @@
 // in each stage (Stage below; a barrier's wait from the warps' arrival
 // clocks); PERF.md §6 has the splits.
 //
+// The packed form (hamming and the BQ metrics: rows of 32-bit lanes, 192
+// bytes at 1,536 bits). A packed hop moves little (32 rows of 192 B is
+// 6 KB), so it is bound by its chain of latencies, not by bytes, and the
+// staging that dense rows need (the copies, their wait, the barrier-free
+// reduction from shared memory) would only lengthen it. So a packed block
+// stages nothing: each thread holds its share of the query's lanes in
+// registers, read once a block (PackedQuery); a hop's candidates go to
+// groups of kGroup lanes, 8 a warp and 64 a block, so that every
+// candidate of a hop is read in the one trip: group j of warp w loads the
+// row of the candidate at link position w + 8j, units s, s + 4, ... into
+// registers (three 16-byte loads a lane at 1,536 bits, 64 contiguous bytes
+// a group an instruction), beside its norm under BQ cosine; then __popc of
+// the xor, two shuffles, and packed_distance (row_distance.cuh, the gather
+// kernel's epilogue). The entry, the link row, the dedup, the rank and the
+// merge are the dense forms' code, so the tie rule is the same: the host
+// loop's stable merge, the pool first.
+//
 // Scope: f32, bf16 and int8 rows of whole 16-byte units from aligned bases
 // (the gather kernel's staged design) under cosine, euclidean and
-// manhattan, one entry expanded a hop, every link of a row (at most
-// kMaxCap), no tail allowance (ops/search_cuda.py:search_design_of). Ids
-// and row offsets are 64-bit where they address the store.
+// manhattan, and packed rows of whole 16-byte units from aligned bases (its
+// pair design) under the four packed metrics; one entry expanded a hop,
+// every link of a row (at most kMaxCap), no tail allowance
+// (ops/search_cuda.py:search_design_of). Ids and row offsets are 64-bit
+// where they address the store.
 //
 // Built by hannoy_tpu_torch/ops/search_cuda.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -133,6 +152,7 @@
 
 #include <atomic>
 #include <climits>
+#include <type_traits>
 
 #include "row_distance.cuh"
 
@@ -143,11 +163,19 @@ using namespace rowdist;
 constexpr int kRowF32 = 0;
 constexpr int kRowBf16 = 1;
 constexpr int kRowInt8 = 2;
+constexpr int kRowPacked = 3;  // 32-bit lanes of sign bits (the packed metrics), uint32_t below
 
 constexpr int kWarps = 8;  // warps a block
 constexpr int kThreads = kWarps * 32;
 constexpr int kMaxCap = 64;  // candidates a hop or step takes at most: two a lane
 constexpr unsigned kAll = 0xffffffffu;
+constexpr int kGroup = 4;  // packed form: lanes of a warp that take one candidate
+constexpr int kHold = 4;   // packed form: 16-byte units of the query each of them holds in registers
+static_assert(kWarps * (32 / kGroup) == kMaxCap, "the packed form's groups take a hop's candidates in one trip");
+
+// The packed form's row type: the lanes of hamming and the BQ metrics.
+template <typename ROW>
+constexpr bool kPacked = std::is_same_v<ROW, uint32_t>;
 
 // The stages of a hop that `clocks` splits a launch's time into (cycles of
 // thread 0, summed over the block's hops or steps).
@@ -445,6 +473,123 @@ __device__ __forceinline__ void warp_distances(const Graph& g, const Cands& c, c
   }
 }
 
+// A packed query as the packed form holds it, read once a block: lane s of
+// each group of kGroup lanes keeps units s, s + kGroup, ... (the first kHold
+// of them, zero past the row) in registers; a row wider than kGroup x kHold
+// units reads its further units from `lanes` through L1. The query is read
+// by 32-bit loads, so it needs no alignment of its own.
+struct PackedQuery {
+  uint4 u[kHold];
+  const uint32_t* lanes;  // the query's lanes in device memory
+  int units;              // 16-byte units of a row
+};
+
+__device__ __forceinline__ uint4 lanes4(const uint32_t* p) {
+  return make_uint4(__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3));
+}
+
+__device__ __forceinline__ PackedQuery packed_query(const float* q, int64_t b, int units) {
+  PackedQuery pq;
+  pq.lanes = reinterpret_cast<const uint32_t*>(q) + b * 4 * units;
+  pq.units = units;
+  const int s = threadIdx.x % kGroup;
+#pragma unroll
+  for (int j = 0; j < kHold; ++j) {
+    const int u = s + kGroup * j;
+    pq.u[j] = u < units ? lanes4(pq.lanes + 4 * u) : make_uint4(0u, 0u, 0u, 0u);
+  }
+  return pq;
+}
+
+// The packed form's distances, arguments as warp_distances' (no staging):
+// group j of warp w takes the candidate at position w + kWarps * j of the up
+// to kMaxCap the hop offered (lane t % 32 holds position t), if it was
+// taken. Its kGroup lanes load the row's units straight into registers, all
+// in one trip, with the norm under BQ cosine, xor them with the query's,
+// count the bits, and add the counts by two shuffles; the first lane
+// applies packed_distance. A count is an integer, so any order of the sums
+// gives the gather kernel's bits.
+template <int METRIC>
+__device__ __forceinline__ void packed_distances(const Graph& g, const Cands& c, const PackedQuery& q, float q_norm,
+                                                 float* d, int32_t* ids, bool seeds, Stopwatch& sw, int& n_dist) {
+  const int lane = threadIdx.x & 31, s = lane % kGroup;
+  const int t = (threadIdx.x >> 5) + kWarps * (lane / kGroup);
+  const int src = t & 31;
+  const bool hi = t >= 32;
+  const int32_t id0 = __shfl_sync(kAll, c.id[0], src), id1 = __shfl_sync(kAll, c.id[1], src);
+  const int k0 = __shfl_sync(kAll, c.slot[0], src), k1 = __shfl_sync(kAll, c.slot[1], src);
+  const int32_t id = hi ? id1 : id0;
+  const int k = hi ? k1 : k0;  // its place among the taken candidates (-1: not taken)
+  const bool load = k >= 0 && id < g.n_rows;
+  const int units = q.units;
+  const uint4* row = reinterpret_cast<const uint4*>(g.vectors) + static_cast<int64_t>(load ? id : 0) * units;
+  uint4 v[kHold];
+#pragma unroll
+  for (int j = 0; j < kHold; ++j) {
+    const int u = s + kGroup * j;
+    v[j] = load && u < units ? __ldg(row + u) : make_uint4(0u, 0u, 0u, 0u);
+  }
+  const float norm = METRIC == kBqCosine && load && s == 0 ? __ldg(g.norms + id) : 0.f;
+  const uint32_t ok0 = __shfl_sync(kAll, c.ok[0], src), ok1 = __shfl_sync(kAll, c.ok[1], src);
+  const bool ok = k >= 0 && (hi ? ok1 : ok0) != 0;
+  int pc = 0;
+#pragma unroll
+  for (int j = 0; j < kHold; ++j) pc += popc_xor(q.u[j], v[j]);
+  for (int u = kGroup * kHold + s; load && u < units; u += kGroup) pc += popc_xor(lanes4(q.lanes + 4 * u), __ldg(row + u));
+  sw.lap(kRows);
+#pragma unroll
+  for (int off = 1; off < kGroup; off <<= 1) pc += __shfl_xor_sync(kAll, pc, off);
+  const bool lead = s == 0 && k >= 0;
+  if (lead) {
+    float dist = inf();
+    if (ok && id >= g.n_rows) {
+      dist = nan_f();
+    } else if (ok) {
+      dist = packed_distance<METRIC>(pc, 4 * units, q_norm * norm);
+    }
+    d[k] = dist;
+    if (ids != nullptr) ids[k] = (ok && (!seeds || dist < inf())) ? id : -1;
+    if (ok && id < g.n_rows) mark(g, id);
+  }
+  const unsigned counted = __ballot_sync(kAll, lead && ok);
+  if (lane == 0) n_dist += __popc(counted);
+  sw.lap(kReduce);
+}
+
+// What a hop's distances take of the query: the staged query in shared
+// memory (dense rows), or the registers of the packed form.
+template <typename ROW>
+struct QueryOf {
+  using type = const float4*;
+};
+template <>
+struct QueryOf<uint32_t> {
+  using type = const PackedQuery&;
+};
+template <typename ROW>
+using QueryArg = typename QueryOf<ROW>::type;
+
+template <typename ROW>
+__device__ __forceinline__ QueryArg<ROW> query_of(const float4* q4, const PackedQuery& pq) {
+  if constexpr (kPacked<ROW>) {
+    return pq;
+  } else {
+    return q4;
+  }
+}
+
+// The distances of a hop's taken candidates, by the row type's form.
+template <typename ROW, int METRIC, bool SCALE>
+__device__ __forceinline__ void hop_distances(const Graph& g, const Cands& c, QueryArg<ROW> q, float q_norm,
+                                              unsigned char* slots, int S, float* d, int32_t* ids, bool seeds,
+                                              Stopwatch& sw, int& n_dist) {
+  if constexpr (kPacked<ROW>) {
+    packed_distances<METRIC>(g, c, q, q_norm, d, ids, seeds, sw, n_dist);
+  } else {
+    warp_distances<ROW, METRIC, SCALE>(g, c, q, q_norm, slots, S, d, ids, seeds, sw, n_dist);
+  }
+}
+
 // The query of block b into shared memory, as the metric reads it.
 template <typename ROW, int METRIC>
 __device__ __forceinline__ void stage_query(float* sq, const float* q, int64_t b, int dim) {
@@ -477,7 +622,7 @@ __device__ __forceinline__ bool before(float da, int ka, float db, int kb) {
 // `seeds`: the seeding rules (a seed at +inf keeps no id). Starts and ends
 // with the block synchronised.
 template <typename ROW, int METRIC, bool SCALE>
-__device__ void admit(const Graph& g, const float4* q4, float q_norm, const int32_t* src, int n, bool seeds, Pool cur,
+__device__ void admit(const Graph& g, QueryArg<ROW> q, float q_norm, const int32_t* src, int n, bool seeds, Pool cur,
                       Pool nxt, int ef, int efp, int expanded, const Scratch& s, Stopwatch& sw, int& n_dist) {
   const int tid = threadIdx.x, lane = tid & 31;
   Cands c;
@@ -487,7 +632,7 @@ __device__ void admit(const Graph& g, const float4* q4, float q_norm, const int3
   take_fresh(c, n, cur.id, efp, s.masks, lane, sw);
   sw.lap(kDedup);
   if (c.n > 0) {
-    warp_distances<ROW, METRIC, SCALE>(g, c, q4, q_norm, s.slots, s.S, s.d, s.id, seeds, sw, n_dist);
+    hop_distances<ROW, METRIC, SCALE>(g, c, q, q_norm, s.slots, s.S, s.d, s.id, seeds, sw, n_dist);
     block_sync(sw);
   }
   // the rank, by the last threads: candidate e comes after the r
@@ -576,7 +721,7 @@ __global__ void __launch_bounds__(kThreads, 2) beam_search_kernel(BeamArgs a) {
             dim = a.g.dim;
   const int row_bytes = dim * static_cast<int>(sizeof(ROW)), S = a.rows / kWarps;
   float* sq = reinterpret_cast<float*>(smem);
-  unsigned char* stage = reinterpret_cast<unsigned char*>(sq + dim);
+  unsigned char* stage = reinterpret_cast<unsigned char*>(sq + (kPacked<ROW> ? 0 : dim));
   long long* clk = reinterpret_cast<long long*>(stage + static_cast<size_t>(a.rows) * row_bytes);
   float* f = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(clk) + kClockBytes);
   Pool pool[2] = {{f, reinterpret_cast<int32_t*>(f + efp), reinterpret_cast<int32_t*>(f + 2 * efp)},
@@ -586,9 +731,14 @@ __global__ void __launch_bounds__(kThreads, 2) beam_search_kernel(BeamArgs a) {
   const Scratch s{stage + static_cast<size_t>(warp) * S * row_bytes, S, hop_d, hop_id,
                   reinterpret_cast<unsigned*>(hop_id + cap)};
 
-  stage_query<ROW, METRIC>(sq, a.q, b, dim);
+  [[maybe_unused]] PackedQuery pq;
+  if constexpr (kPacked<ROW>) {
+    pq = packed_query(a.q, b, dim / 4);
+  } else {
+    stage_query<ROW, METRIC>(sq, a.q, b, dim);
+  }
   const float4* q4 = reinterpret_cast<const float4*>(sq);
-  const float q_norm = METRIC == kCosine ? __ldg(a.qn + b) : 0.f;
+  const float q_norm = METRIC == kCosine || METRIC == kBqCosine ? __ldg(a.qn + b) : 0.f;
   float* gd = a.pool_d + b * ef;
   int32_t* gi = a.pool_id + b * ef;
   int32_t* ge = a.pool_exp + b * ef;
@@ -625,7 +775,8 @@ __global__ void __launch_bounds__(kThreads, 2) beam_search_kernel(BeamArgs a) {
       ++hops;
       sw.lap(kEntry);
     }
-    admit<ROW, METRIC, SCALE>(a.g, q4, q_norm, src, n, seeds, pool[cur], pool[cur ^ 1], ef, efp, p, s, sw, n_dist);
+    admit<ROW, METRIC, SCALE>(a.g, query_of<ROW>(q4, pq), q_norm, src, n, seeds, pool[cur], pool[cur ^ 1], ef, efp, p,
+                              s, sw, n_dist);
     cur ^= 1;
   }
   for (int i = tid; i < ef; i += kThreads) {
@@ -701,17 +852,22 @@ __global__ void __launch_bounds__(kThreads, 2) greedy_descend_kernel(GreedyArgs 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, dim = a.g.dim;
   const int row_bytes = dim * static_cast<int>(sizeof(ROW)), S = a.rows / kWarps;
   float* sq = reinterpret_cast<float*>(smem);
-  unsigned char* stage = reinterpret_cast<unsigned char*>(sq + dim);
+  unsigned char* stage = reinterpret_cast<unsigned char*>(sq + (kPacked<ROW> ? 0 : dim));
   long long* clk = reinterpret_cast<long long*>(stage + static_cast<size_t>(a.rows) * row_bytes);
   float* cd = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(clk) + kClockBytes);  // [2][kMaxCap]
   unsigned char* slots = stage + static_cast<size_t>(warp) * S * row_bytes;
 
-  stage_query<ROW, METRIC>(sq, a.q, b, dim);
+  [[maybe_unused]] PackedQuery pq;
+  if constexpr (kPacked<ROW>) {
+    pq = packed_query(a.q, b, dim / 4);
+  } else {
+    stage_query<ROW, METRIC>(sq, a.q, b, dim);
+  }
   if (tid < kClockBytes / 8) clk[tid] = 0;
   __syncthreads();
   Stopwatch sw = stopwatch(clk, a.clocks != nullptr);
   const float4* q4 = reinterpret_cast<const float4*>(sq);
-  const float q_norm = METRIC == kCosine ? __ldg(a.qn + b) : 0.f;
+  const float q_norm = METRIC == kCosine || METRIC == kBqCosine ? __ldg(a.qn + b) : 0.f;
   int n_dist = 0, steps = 0, par = 0;  // par: the distance buffer of the next step
   int32_t cur;
   float cur_d;
@@ -731,7 +887,8 @@ __global__ void __launch_bounds__(kThreads, 2) greedy_descend_kernel(GreedyArgs 
       int at = 0;  // the chunk's argmin; +inf (none, or all at +inf): its first entry
       if (c.n > 0) {
         float* d = cd + par * kMaxCap;
-        warp_distances<ROW, METRIC, SCALE>(a.g, c, q4, q_norm, slots, S, d, nullptr, false, sw, n_dist);
+        hop_distances<ROW, METRIC, SCALE>(a.g, c, query_of<ROW>(q4, pq), q_norm, slots, S, d, nullptr, false, sw,
+                                          n_dist);
         block_sync(sw);
         par ^= 1;
         const int k = warp_argmin(d, c.n, lane, cd_best);
@@ -770,7 +927,8 @@ __global__ void __launch_bounds__(kThreads, 2) greedy_descend_kernel(GreedyArgs 
         // the distances alternate between two buffers, so that the next
         // step writes the other while a warp may still read this one
         float* d = cd + par * kMaxCap;
-        warp_distances<ROW, METRIC, SCALE>(a.g, c, q4, q_norm, slots, S, d, nullptr, false, sw, n_dist);
+        hop_distances<ROW, METRIC, SCALE>(a.g, c, query_of<ROW>(q4, pq), q_norm, slots, S, d, nullptr, false, sw,
+                                          n_dist);
         block_sync(sw);
         par ^= 1;
         const int k = warp_argmin(d, c.n, lane, best_d);
@@ -845,35 +1003,55 @@ struct Dispatch {
       default: return cudaErrorInvalidValue;
     }
   }
+  // packed rows: one form, the metric in packed_distance's epilogue
+  static cudaError_t packed_of(const ARGS& a, int batch, int metric, cudaStream_t stream) {
+    switch (metric) {
+      case kHamming: return LAUNCH<uint32_t, kHamming, false>::run(a, batch, stream);
+      case kBqCosine: return LAUNCH<uint32_t, kBqCosine, false>::run(a, batch, stream);
+      case kBqEuclidean: return LAUNCH<uint32_t, kBqEuclidean, false>::run(a, batch, stream);
+      case kBqManhattan: return LAUNCH<uint32_t, kBqManhattan, false>::run(a, batch, stream);
+      default: return cudaErrorInvalidValue;
+    }
+  }
   static cudaError_t run(const ARGS& a, int batch, int metric, int row_type, bool scale_rows, cudaStream_t stream) {
     switch (row_type) {
       case kRowF32: return row_of<float>(a, batch, metric, scale_rows, stream);
       case kRowBf16: return row_of<__nv_bfloat16>(a, batch, metric, scale_rows, stream);
       case kRowInt8: return row_of<int8_t>(a, batch, metric, scale_rows, stream);
+      case kRowPacked: return scale_rows ? cudaErrorInvalidValue : packed_of(a, batch, metric, stream);
       default: return cudaErrorInvalidValue;
     }
   }
 };
 
-int row_size(int row_type) { return row_type == kRowF32 ? 4 : row_type == kRowBf16 ? 2 : 1; }
+int row_size(int row_type) { return row_type == kRowBf16 ? 2 : row_type == kRowInt8 ? 1 : 4; }
 
 // The rows must be whole 16-byte units from a 16-byte aligned base, as the
-// staged design of the gather kernel needs (ops/search_cuda.py checks).
+// gather kernel's staged design (dense rows) and pair design (packed rows)
+// need (ops/search_cuda.py checks).
 bool rows_ok(const Graph& g, int row_type) {
-  return row_type >= kRowF32 && row_type <= kRowInt8 && (static_cast<int64_t>(g.dim) * row_size(row_type)) % 16 == 0 &&
-         reinterpret_cast<uintptr_t>(g.vectors) % 16 == 0;
+  return row_type >= kRowF32 && row_type <= kRowPacked &&
+         (static_cast<int64_t>(g.dim) * row_size(row_type)) % 16 == 0 && reinterpret_cast<uintptr_t>(g.vectors) % 16 == 0;
 }
 
-bool staging_ok(int rows) { return rows >= kWarps && rows % kWarps == 0; }
+// Dense rows stage in whole warps' slots; packed rows stage nothing.
+bool staging_ok(int rows, int row_type) {
+  return row_type == kRowPacked ? rows == 0 : rows >= kWarps && rows % kWarps == 0;
+}
+
+// The query's f32 elements in shared memory: none for packed rows (their
+// lanes stay in registers).
+int staged_query(int dim, int row_type) { return row_type == kRowPacked ? 0 : dim; }
 
 }  // namespace
 
 // The graph (every launch): vectors [n_rows, dim] (row_type 0 f32, 1 bf16,
-// 2 int8), norms [n_rows], links0 [n_pad, w0], upper [L, u_pad, wu],
+// 2 int8, 3 packed 32-bit lanes), norms [n_rows], links0 [n_pad, w0], upper [L, u_pad, wu],
 // slot_rows [L, n_pad], node_ok [n_ok] (bytes), L = n_levels; seen:
 // nullptr, or n_rows + n_pad x (1 + L) + L x u_pad bytes (mark()); metric 0 cosine,
-// 1 euclidean, 2 manhattan; scale_rows != 0 scales int8 rows by norms[row]
-// (euclidean / manhattan). q [batch, dim] f32, qn [batch]; clocks: nullptr
+// 1 euclidean, 2 manhattan for row types 0-2, 3 hamming, 4 bq cosine, 5 bq
+// euclidean, 6 bq manhattan for row type 3; scale_rows != 0 scales int8 rows by norms[row]
+// (euclidean / manhattan). q [batch, dim] f32 (lanes for row type 3), qn [batch]; clocks: nullptr
 // or [batch, 8] int64 (Stage), added to.
 #define GRAPH_PARAMS                                                                                              \
   const void *vectors, const float *norms, long long n_rows, int dim, const int32_t *links0, int w0,              \
@@ -885,8 +1063,8 @@ bool staging_ok(int rows) { return rows >= kWarps && rows % kWarps == 0; }
 // One beam at `level` for each of `batch` queries: seeded from start
 // [batch, n_start] (seeded == 0) or continued from the pool (seeded != 0),
 // at most `budget` hops a row. cap, rows and smem: the candidates a hop
-// takes, the staging buffer's rows and the block's shared memory, from
-// ops/search_cuda.py:beam_shared. pool_* [batch, ef] out (in where seeded);
+// takes, the staging buffer's rows (0 for packed rows) and the block's
+// shared memory, from ops/search_cuda.py:beam_shared. pool_* [batch, ef] out (in where seeded);
 // hops and n_dist [batch] are added to; active [batch] out.
 extern "C" int search_beam(GRAPH_PARAMS, const float* q, const float* qn, int batch, const int32_t* start, int n_start,
                            int level, int ef, int cap, int rows, long long smem, int budget, int seeded, float* pool_d,
@@ -896,8 +1074,8 @@ extern "C" int search_beam(GRAPH_PARAMS, const float* q, const float* qn, int ba
   const Graph g = GRAPH_ARGS;
   const int width = level == 0 ? w0 : wu;
   if (!rows_ok(g, row_type) || ef < 1 || budget < 0 || cap < width || cap % 32 != 0 || cap > kMaxCap ||
-      !staging_ok(rows) || smem < 0 ||
-      static_cast<size_t>(smem) < beam_bytes(dim, dim * row_size(row_type), ef, cap, rows)) {
+      !staging_ok(rows, row_type) || smem < 0 ||
+      static_cast<size_t>(smem) < beam_bytes(staged_query(dim, row_type), dim * row_size(row_type), ef, cap, rows)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const BeamArgs a{g, q, qn, start, n_start, level, width, cap, rows, static_cast<size_t>(smem), ef, budget, seeded,
@@ -911,8 +1089,8 @@ extern "C" int search_beam(GRAPH_PARAMS, const float* q, const float* qn, int ba
 // The greedy descent of `batch` queries through levels from_level ..
 // to_level (>= 1), at most max_steps steps a level: from the entry points
 // [n_entry] (init != 0) or from cur / cur_d / improved. rows and smem: the
-// staging buffer's rows and the block's shared memory, from
-// ops/search_cuda.py:greedy_shared. cur, cur_d and improved [batch] out;
+// staging buffer's rows (0 for packed rows) and the block's shared memory,
+// from ops/search_cuda.py:greedy_shared. cur, cur_d and improved [batch] out;
 // steps and n_dist [batch] are added to.
 extern "C" int search_greedy(GRAPH_PARAMS, const float* q, const float* qn, int batch, const int32_t* entry,
                              int n_entry, int from_level, int to_level, int max_steps, int init, int rows,
@@ -922,7 +1100,8 @@ extern "C" int search_greedy(GRAPH_PARAMS, const float* q, const float* qn, int 
   if (batch == 0) return static_cast<int>(cudaGetLastError());
   const Graph g = GRAPH_ARGS;
   if (!rows_ok(g, row_type) || (init && n_entry < 1) || (from_level >= to_level && to_level < 1) || wu > kMaxCap ||
-      !staging_ok(rows) || smem < 0 || static_cast<size_t>(smem) < greedy_bytes(dim, dim * row_size(row_type), rows)) {
+      !staging_ok(rows, row_type) || smem < 0 ||
+      static_cast<size_t>(smem) < greedy_bytes(staged_query(dim, row_type), dim * row_size(row_type), rows)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const GreedyArgs a{g, q, qn, entry, n_entry, rows, static_cast<size_t>(smem), from_level, to_level, max_steps, init,

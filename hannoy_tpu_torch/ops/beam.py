@@ -21,11 +21,12 @@ Counterpart of the unfiltered half of ``hannoy_tpu/ops/beam.py``:
 
 ``beam_search`` and ``greedy_descend`` choose how their loop runs by one
 fixed rule, ``search_cuda.search_design_of``: on CUDA tensors of dense
-rows that the gather kernel's staged design serves, with one entry
-expanded a hop, every link of a row and no tail allowance, the loop is one
-hand-written kernel for the whole batch (``csrc/search.cu``: the JAX
-package's jitted loops as device programs), and a launch that fails
-raises; everything else, CPU tensors among it, takes the host loop
+rows that the gather kernel's staged design serves, or of packed rows that
+its pair design serves, with one entry expanded a hop, every link of a row
+and no tail allowance, the loop is one hand-written kernel for the whole
+batch (``csrc/search.cu``: the JAX package's jitted loops as device
+programs), and a launch that fails raises; everything else, CPU tensors
+and packed rows of other widths among it, takes the host loop
 (``beam_search_loop``, ``greedy_descend_loop``), which stays the JAX-parity
 code. The kernels give the host loop's answers bit for bit.
 

@@ -14,9 +14,11 @@ loop on its own gives the batch loop's pools.
 ``search_design_of`` is the fixed rule by which ``beam.beam_search`` and
 ``beam.greedy_descend`` choose: "kernel" for CUDA tensors of f32, bf16 or
 int8 rows that the gather kernel's staged design serves, under cosine,
-euclidean or manhattan, one entry expanded a hop, every link of a row and
-no tail allowance; "host" (the host loop, unchanged) for everything else,
-CPU tensors among it. A launch that fails raises; nothing falls back.
+euclidean or manhattan, and of packed rows (the int32 lanes of hamming and
+the binary quantized metrics) that its pair design serves, with one entry
+expanded a hop, every link of a row and no tail allowance; "host" (the
+host loop, unchanged) for everything else, CPU tensors and packed rows of
+other widths among it. A launch that fails raises; nothing falls back.
 
 ``beam_search_rowwise`` and ``greedy_descend_rowwise`` are the kernels'
 per-row algorithm in plain PyTorch (a loop over the rows; the first
@@ -37,10 +39,13 @@ timing. A call with ``clocks=clock_buffer(B)`` records the cycles each
 block's thread 0 spent in each stage of its hops (``STAGES``): the split
 of a hop.
 
-Each block stages the rows of a hop in shared memory, a few slots for
-each of its ``WARPS`` warps: ``beam_shared`` and ``greedy_shared`` size
-the buffer by one rule (``staged_rows``), which the routing rule and the
-launches share.
+Each block of dense rows stages the rows of a hop in shared memory, a few
+slots for each of its ``WARPS`` warps: ``beam_shared`` and
+``greedy_shared`` size the buffer by one rule (``staged_rows``), which the
+routing rule and the launches share. A block of packed rows stages
+nothing: its threads load a hop's rows straight into registers, beside the
+query's lanes held there, and the same two functions size its smaller
+block.
 """
 
 from __future__ import annotations
@@ -122,29 +127,38 @@ def staged_rows(row_bytes: int, fixed: int, width: int) -> int:
     return WARPS * max(1, min(share, fit))
 
 
-def beam_shared(dim: int, row_bytes: int, ef: int, width: int) -> tuple[int, int, int]:
+def beam_shared(dim: int, row_bytes: int, ef: int, width: int, packed: bool = False) -> tuple[int, int, int]:
     """``beam_search_kernel``'s candidates a hop (``width`` link columns
     in whole warps), staging rows (``staged_rows``) and the bytes of shared
     memory its block takes, in the layout the kernel carves (``beam_bytes``
     in the source): the query (``dim`` f32), the staging rows of
     ``row_bytes``, the clocks, two pools of ``ef`` (distance, id,
     expanded; ef padded to 4), the hop's distances and ids, the warps'
-    finds in the pool → (cap, rows, bytes). The routing rule and the
-    launch both size the block by it."""
+    finds in the pool → (cap, rows, bytes). ``packed`` rows keep the query
+    in registers and stage nothing: no query, 0 rows. The routing rule and
+    the launch both size the block by it."""
     cap = (max(width, 1) + 31) // 32 * 32
-    fixed = 4 * dim + CLOCK_BYTES + 24 * (-(-ef // 4) * 4) + 8 * cap + 8 * WARPS
-    rows = staged_rows(row_bytes, fixed, width)
+    fixed = (0 if packed else 4 * dim) + CLOCK_BYTES + 24 * (-(-ef // 4) * 4) + 8 * cap + 8 * WARPS
+    rows = 0 if packed else staged_rows(row_bytes, fixed, width)
     return cap, rows, fixed + rows * row_bytes
 
 
-def greedy_shared(dim: int, row_bytes: int, width: int) -> tuple[int, int]:
+def greedy_shared(dim: int, row_bytes: int, width: int, packed: bool = False) -> tuple[int, int]:
     """``greedy_descend_kernel``'s staging rows for link rows of ``width``
     columns and the bytes of shared memory its block takes (``greedy_bytes``
     in the source: the query, the staging rows, the clocks, two buffers of
-    ``MAX_CAP`` distances) → (rows, bytes)."""
-    fixed = 4 * dim + CLOCK_BYTES + 8 * MAX_CAP
-    rows = staged_rows(row_bytes, fixed, width)
+    ``MAX_CAP`` distances; ``packed`` rows: neither query nor rows) →
+    (rows, bytes)."""
+    fixed = (0 if packed else 4 * dim) + CLOCK_BYTES + 8 * MAX_CAP
+    rows = 0 if packed else staged_rows(row_bytes, fixed, width)
     return rows, fixed + rows * row_bytes
+
+
+def _rows_in_scope(metric: distances.Metric, dtype: torch.dtype) -> bool:
+    """Whether the kernels take rows of ``dtype`` under ``metric``: int32
+    lanes for a packed metric, a row type of ``beam_cuda.ROW_TYPES`` for
+    the others. The routing rule and the launches' checks both ask it."""
+    return dtype == torch.int32 if metric.is_packed else dtype in beam_cuda.ROW_TYPES
 
 
 def search_design_of(
@@ -159,19 +173,22 @@ def search_design_of(
     ef: int = 1,
     width: int = 0,
 ) -> str:
-    """How a search loop runs → "kernel" or "host". ``aligned``: the rows
-    start at a 16-byte aligned address; ``traverse_k``: the links a hop
-    reads where that cuts the row (None: the whole row); ``width`` (link
-    columns) may not pass ``MAX_CAP``; ``ef`` and ``width`` size a beam's
-    shared memory (``beam_shared``), which must fit the block's
-    (``beam_cuda.STAGED_SMEM``)."""
-    if device_type != "cuda" or metric.is_packed or row_dtype not in beam_cuda.ROW_TYPES:
+    """How a search loop runs → "kernel" or "host". The kernels take CUDA
+    tensors of f32, bf16 or int8 rows that the gather kernel's staged
+    design serves, and of packed rows (int32 lanes of hamming or a binary
+    quantized metric, ``dim`` lanes) that its pair design serves.
+    ``aligned``: the rows start at a 16-byte aligned address;
+    ``traverse_k``: the links a hop reads where that cuts the row (None:
+    the whole row); ``width`` (link columns) may not pass ``MAX_CAP``;
+    ``ef`` and ``width`` size a beam's shared memory (``beam_shared``),
+    which must fit the block's (``beam_cuda.STAGED_SMEM``)."""
+    if device_type != "cuda" or not _rows_in_scope(metric, row_dtype):
         return "host"
-    if beam_cuda.design_of(row_dtype, metric, dim, aligned) != "staged":
+    if beam_cuda.design_of(row_dtype, metric, dim, aligned) != ("pair" if metric.is_packed else "staged"):
         return "host"
     if expand != 1 or traverse_k is not None or tail_allow != 0 or width > MAX_CAP:
         return "host"
-    if beam_shared(dim, dim * row_dtype.itemsize, ef, width)[2] > beam_cuda.STAGED_SMEM:
+    if beam_shared(dim, dim * row_dtype.itemsize, ef, width, metric.is_packed)[2] > beam_cuda.STAGED_SMEM:
         return "host"
     return "kernel"
 
@@ -228,11 +245,22 @@ def _graph_args(g, node_ok: torch.Tensor, seen: Optional[torch.Tensor] = None) -
 
 def _form(g) -> tuple[int, int, int]:
     """(metric id, row-type id, scale_rows) of the graph's rows."""
-    metric = g.metric
-    if g.vectors.dtype not in beam_cuda.ROW_TYPES or metric.is_packed:
-        raise TypeError(f"search kernels: {metric.name} on rows of {g.vectors.dtype} is out of their scope")
-    scale_rows = g.vectors.dtype == torch.int8 and metric.name != "cosine"
-    return beam_cuda.METRIC_IDS[metric.name], beam_cuda.ROW_TYPES[g.vectors.dtype][1], int(scale_rows)
+    metric, dtype = g.metric, g.vectors.dtype
+    if not _rows_in_scope(metric, dtype):
+        raise TypeError(f"search kernels: {metric.name} on rows of {dtype} is out of their scope")
+    if metric.is_packed:
+        return beam_cuda.METRIC_IDS[metric.name], beam_cuda.PACKED_ROWS[1], 0
+    scale_rows = dtype == torch.int8 and metric.name != "cosine"
+    return beam_cuda.METRIC_IDS[metric.name], beam_cuda.ROW_TYPES[dtype][1], int(scale_rows)
+
+
+def _query(g, q: torch.Tensor, qn: torch.Tensor) -> torch.Tensor:
+    """The one query form the kernels take (``beam_cuda._canonical_query``),
+    contiguous: f32, or for packed rows their int32 lanes."""
+    qf = beam_cuda._canonical_query(g.metric, g.vectors, q, qn).contiguous()
+    if g.metric.is_packed and not _rows_in_scope(g.metric, qf.dtype):
+        raise TypeError(f"search kernels: {g.metric.name} takes queries of int32 lanes, got {qf.dtype}")
+    return qf
 
 
 def _check_devices(g, *tensors: torch.Tensor) -> torch.device:
@@ -283,7 +311,7 @@ def beam_search_kernel(
     metric_id, row_id, scale_rows = _form(g)
     form = beam_cuda.form_of(g.metric, g.vectors.dtype)
     B = q.shape[0]
-    qf = beam_cuda._canonical_query(g.metric, g.vectors, q, qn)
+    qf = _query(g, q, qn)
     qn32 = qn.to(torch.float32).contiguous()
     seeds = start.to(torch.int32).contiguous()
     if qf.shape != (B, g.vectors.shape[1]) or qn32.shape != (B,) or seeds.dim() != 2 or seeds.shape[0] != B:
@@ -302,7 +330,8 @@ def beam_search_kernel(
         return pool_d, pool_id, torch.zeros((), dtype=torch.int32, device=dev), active.bool()
     keep, graph = _graph_args(g, node_ok, seen)
     _check_clocks(clocks, B, dev)
-    cap, rows, smem = beam_shared(g.vectors.shape[1], g.vectors.shape[1] * g.vectors.element_size(), ef, width)
+    cap, rows, smem = beam_shared(g.vectors.shape[1], g.vectors.shape[1] * g.vectors.element_size(), ef, width,
+                                  g.metric.is_packed)
     lib = KERNELS.load()
 
     def launch(budget: int, seeded: int) -> None:
@@ -354,7 +383,7 @@ def greedy_descend_kernel(
     metric_id, row_id, scale_rows = _form(g)
     form = beam_cuda.form_of(g.metric, g.vectors.dtype)
     B = q.shape[0]
-    qf = beam_cuda._canonical_query(g.metric, g.vectors, q, qn)
+    qf = _query(g, q, qn)
     qn32 = qn.to(torch.float32).contiguous()
     entry = g.entry_slots.to(torch.int32).contiguous()
     cur = torch.empty((B,), dtype=torch.int32, device=dev)
@@ -370,7 +399,7 @@ def greedy_descend_kernel(
     keep, graph = _graph_args(g, node_ok, seen)
     _check_clocks(clocks, B, dev)
     rows, smem = greedy_shared(g.vectors.shape[1], g.vectors.shape[1] * g.vectors.element_size(),
-                               g.upper_links.shape[-1])
+                               g.upper_links.shape[-1], g.metric.is_packed)
     lib = KERNELS.load()
 
     def launch(top: int, bottom: int, budget: int, init: int) -> None:

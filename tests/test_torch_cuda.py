@@ -11,6 +11,8 @@ card against the same path on the CPU: 95% of the links records, recall
 within 0.02, and the same answers after a reopen.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -764,6 +766,24 @@ def _search_graph(cuda, name="cosine", tier="raw", n=3000, d=64, slack=0, seed=2
     return g, dev, q, qn
 
 
+def _packed_search_graph(cuda, name, bits=1536, seed=21):
+    """``_search_graph``'s cosine graph with packed rows under ``name``: the
+    signs of its points' random projections to ``bits`` dimensions
+    (hamming then follows their angles), and its queries' → (device graph,
+    queries' lanes and their norms on the card)."""
+    from hannoy_tpu_torch.ops import codecs
+
+    g, dev, q, _ = _search_graph(cuda, seed=seed)
+    metric = distances.by_name(name)
+    project = np.random.default_rng(seed + 1).standard_normal((g.vectors.shape[1], bits)).astype(np.float32)
+    rows = codecs.pack(g.vectors @ project, metric.codec)
+    q_lanes = codecs.pack(q.cpu().numpy() @ project, metric.codec)
+    lanes = lambda x: torch.from_numpy(distances.as_lanes(x)).to(cuda)  # noqa: E731
+    norms = lambda x: torch.from_numpy(distances.np_norms(metric, x)).to(cuda)  # noqa: E731
+    dev = dataclasses.replace(dev, metric_name=name, vectors=lanes(rows), norms=norms(rows))
+    return dev, lanes(q_lanes), norms(q_lanes)
+
+
 def _bits(res):
     return res.slots.cpu(), res.dists.cpu().view(torch.int32), int(res.iters), res.active.cpu()
 
@@ -808,14 +828,35 @@ def _check_search(monkeypatch, dev, q, qn, ef, ef_upper=1, rows=None, twin=True)
     return got
 
 
-@pytest.mark.parametrize("tier", ["raw", "bf16", "int8"])
-@pytest.mark.parametrize("name", ["cosine", "euclidean", "manhattan"])
+PACKED_NAMES = [m.name for m in distances.ALL_METRICS if m.is_packed]
+
+
+@pytest.mark.parametrize("name, tier", [(name, tier) for name in ("cosine", "euclidean", "manhattan")
+                                        for tier in ("raw", "bf16", "int8")]
+                         + [(name, "packed-1536") for name in PACKED_NAMES] + [("hamming", "packed-3072")])
 def test_search_kernels_match_host_loop(cuda, monkeypatch, name, tier):
-    _, dev, q, qn = _search_graph(cuda, name, tier)
-    assert search_cuda.search_design_of("cuda", dev.vectors.dtype, dev.metric, dev.vectors.shape[1], True) == "kernel"
-    for ef, ef_upper in ((1, 1), (10, 8), (48, 1), (48, 8)):
+    """``hnsw_search`` by the kernels equals the host loop on the card and
+    the plain versions, slots and distance bits, through the greedy descent
+    and the layer-1 and layer-0 beams, in every row form: f32, bf16 and
+    int8 rows, and packed rows of 48 lanes (1,536 bits: the hamming cell's
+    rows, each packed metric) and of 96 (3,072 bits: wider than a group's
+    registers hold, so that the query's further lanes are read in a loop);
+    the launches count under the graph's form."""
+    if tier.startswith("packed"):
+        dev, q, qn = _packed_search_graph(cuda, name, bits=int(tier.split("-")[1]))
+        assert dev.vectors.dtype == torch.int32 and dev.vectors.shape[1] == int(tier.split("-")[1]) // 32
+    else:
+        _, dev, q, qn = _search_graph(cuda, name, tier)
+    assert search_cuda.search_design_of("cuda", dev.vectors.dtype, dev.metric, dev.vectors.shape[1], True,
+                                        ef=100, width=dev.m0) == "kernel"
+    form = beam_cuda.form_of(dev.metric, dev.vectors.dtype)
+    wide = ((100, 32),) if tier.startswith("packed") else ()
+    for ef, ef_upper in ((1, 1), (10, 8), (48, 1), (48, 8)) + wide:
         got = _check_search(monkeypatch, dev, q, qn, ef, ef_upper, rows=24)
         assert got.slots.shape == (96, ef) and bool((got.slots[:, 0] >= 0).all())
+        by_form = search_cuda.KERNELS.by_form
+        assert by_form.get((search_cuda.BEAM, *form), 0) >= 1
+        assert set(by_form) <= {(search_cuda.BEAM, *form), (search_cuda.GREEDY, *form)}
 
 
 def nan_walk_rows(dev) -> list[int]:
@@ -872,11 +913,16 @@ def test_search_kernels_edge_cases(cuda, monkeypatch, case):
         assert torch.equal(cur, search_cuda.greedy_descend_rowwise(dev, q, qn, dev.max_level, 1))
 
 
+@pytest.mark.parametrize("graph", ["cosine", "hamming-1536"])
 @pytest.mark.parametrize("fire_at", [1, 2, 3])
-def test_search_kernels_cancel_at_the_host_loops_checks(cuda, fire_at):
+def test_search_kernels_cancel_at_the_host_loops_checks(cuda, fire_at, graph):
     """A cancel that fires at the k-th check: the kernels' launches of
-    SYNC_EVERY hops stop where the host loop stops, with its pools."""
-    _, dev, q, qn = _search_graph(cuda)
+    SYNC_EVERY hops stop where the host loop stops, with its pools; on f32
+    rows and on packed rows of 48 lanes."""
+    if graph == "cosine":
+        _, dev, q, qn = _search_graph(cuda)
+    else:
+        dev, q, qn = _packed_search_graph(cuda, "hamming")
 
     def firing():
         calls = []
@@ -949,8 +995,6 @@ def test_reader_by_vecs_through_the_kernels(cuda, tmp_path, monkeypatch):
 def _full_rows(dev, seed=5):
     """``dev`` with every layer-0 link row full: as many distinct live ids
     as it has columns, none the row's own slot."""
-    import dataclasses
-
     n, w = int(dev.valid.sum()), dev.links0.shape[1]
     rng = np.random.default_rng(seed)
     rows = np.full(tuple(dev.links0.shape), -1, dtype=np.int32)
@@ -1025,3 +1069,26 @@ def test_search_kernels_staged_hop(cuda, monkeypatch, case):
         assert dev.vectors.dtype == {"bf16": torch.bfloat16, "int8": torch.int8}[tier]
         for ef, ef_upper in ((10, 1), (48, 8)):
             _check_search(monkeypatch, dev, q, qn, ef, ef_upper, rows=8)
+
+
+@pytest.mark.parametrize("name", ["hamming", "binary quantized cosine"])
+def test_packed_search_kernels_skip_deleted_slots(cuda, monkeypatch, name):
+    """Packed rows of 48 lanes and a ``node_ok`` without a tenth of the
+    items (deleted slots): the greedy descent and the beam by the kernels'
+    packed form equal the host loop and the plain versions, and no walk
+    ends on a deleted slot and no pool holds one."""
+    dev, q, qn = _packed_search_graph(cuda, name)
+    form = (search_cuda.GREEDY, *beam_cuda.form_of(dev.metric, dev.vectors.dtype))
+    assert form[1:] == ("packed", "popcount")
+    ok = dev.valid.clone()
+    dropped = torch.from_numpy(np.random.default_rng(9).choice(3000, 300, replace=False)).to(cuda)
+    ok[dropped] = False
+    search_cuda.KERNELS.reset_counts()
+    cur = beam.greedy_descend(dev, q, qn, dev.max_level, 1, node_ok=ok)
+    assert search_cuda.KERNELS.by_form == {form: 1}
+    assert torch.equal(cur, beam.greedy_descend_loop(dev, q, qn, dev.max_level, 1, node_ok=ok))
+    assert torch.equal(cur, search_cuda.greedy_descend_rowwise(dev, q, qn, dev.max_level, 1, node_ok=ok))
+    assert bool(ok[cur.long()].all())
+    got = _check_beam(monkeypatch, dev, q, qn, cur[:, None].contiguous(), 100, node_ok=ok)
+    assert set(search_cuda.KERNELS.by_form) == {(search_cuda.BEAM, *form[1:])}
+    assert not bool(torch.isin(got.slots, dropped).any()) and bool((got.slots[:, 0] >= 0).all())

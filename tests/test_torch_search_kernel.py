@@ -31,8 +31,9 @@ from hannoy_tpu.models import hnsw as jax_hnsw
 from hannoy_tpu.ops import beam as jax_beam
 from hannoy_tpu.ops import distances as jax_distances
 from hannoy_tpu_torch import Database, Metric
+from hannoy_tpu_torch.build import builder
 from hannoy_tpu_torch.models import hnsw
-from hannoy_tpu_torch.ops import beam, beam_cuda, distances, search_cuda
+from hannoy_tpu_torch.ops import beam, beam_cuda, codecs, distances, search_cuda
 from test_torch_build import N, N_QUERIES, _data, _device_state, _opts, _stage
 
 pytest_plugins = ("jax_programs",)  # clears JAX's compiled programs between tests: tests/jax_programs.py
@@ -285,7 +286,13 @@ def test_query_builder_ef_upper(built, tmp_path):
     (dict(device_type="cuda", row_dtype=torch.int8, metric="manhattan", dim=768, aligned=True), "kernel"),
     (dict(device_type="cuda", row_dtype=torch.float32, metric="cosine", dim=768, aligned=True, ef=512, width=40), "kernel"),
     (dict(device_type="cpu", row_dtype=torch.float32, metric="cosine", dim=768, aligned=True), "host"),
-    (dict(device_type="cuda", row_dtype=torch.int32, metric="hamming", dim=24, aligned=True), "host"),
+    (dict(device_type="cuda", row_dtype=torch.int32, metric="hamming", dim=24, aligned=True), "kernel"),
+    (dict(device_type="cuda", row_dtype=torch.int32, metric="binary quantized cosine", dim=48, aligned=True, ef=100,
+          width=32), "kernel"),
+    (dict(device_type="cuda", row_dtype=torch.int32, metric="hamming", dim=5, aligned=True), "host"),
+    (dict(device_type="cuda", row_dtype=torch.int32, metric="hamming", dim=48, aligned=False), "host"),
+    (dict(device_type="cpu", row_dtype=torch.int32, metric="hamming", dim=48, aligned=True), "host"),
+    (dict(device_type="cuda", row_dtype=torch.int32, metric="hamming", dim=48, aligned=True, expand=2), "host"),
     (dict(device_type="cuda", row_dtype=torch.float32, metric="cosine", dim=37, aligned=True), "host"),
     (dict(device_type="cuda", row_dtype=torch.float32, metric="cosine", dim=768, aligned=False), "host"),
     (dict(device_type="cuda", row_dtype=torch.float32, metric="cosine", dim=768, aligned=True, expand=2), "host"),
@@ -295,13 +302,35 @@ def test_query_builder_ef_upper(built, tmp_path):
 ])
 def test_search_design_rule(case, want):
     """Which loops take the kernels: CUDA tensors of the staged design's
-    dense rows, one entry a hop, whole rows, no tail, a pool that fits;
-    CPU tensors never."""
+    dense rows or of the pair design's packed rows (lanes in whole 16-byte
+    units from an aligned base; 5 lanes is the group design), one entry a
+    hop, whole rows, no tail, a pool that fits; CPU tensors never."""
     case = dict(case, metric=distances.by_name(case["metric"]))
     assert search_cuda.search_design_of(**case) == want
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8], ids=str)
+def _packed_shared_rule():
+    """The packed block (48 lanes, 1,536 bits): no query and no staging
+    rows in shared memory, so at ef 100 and 32 links it fits
+    ``BLOCK_BUDGET`` with room to spare; the routing rule takes the same
+    limits as for dense rows."""
+    lanes, metric = 48, distances.by_name("hamming")
+    design = lambda ef, width=32: search_cuda.search_design_of(  # noqa: E731
+        "cuda", torch.int32, metric, lanes, True, ef=ef, width=width)
+    cap, rows, nbytes = search_cuda.beam_shared(lanes, 4 * lanes, 100, 32, packed=True)
+    assert (cap, rows) == (32, 0) and nbytes <= search_cuda.BLOCK_BUDGET // 4
+    assert nbytes == search_cuda.CLOCK_BYTES + 24 * 100 + 8 * 32 + 8 * search_cuda.WARPS  # clocks, pools, hop, finds
+    assert design(100) == "kernel"
+    fits = [ef for ef in range(1, 20000, 4)
+            if search_cuda.beam_shared(lanes, 4 * lanes, ef, 32, packed=True)[2] <= beam_cuda.STAGED_SMEM]
+    past = max(fits) + 4
+    assert design(max(fits)) == "kernel" and design(past) == "host"
+    assert design(100, search_cuda.MAX_CAP) == "kernel" and design(100, search_cuda.MAX_CAP + 1) == "host"
+    rows, nbytes = search_cuda.greedy_shared(lanes, 4 * lanes, 16, packed=True)
+    assert rows == 0 and nbytes == search_cuda.CLOCK_BYTES + 8 * search_cuda.MAX_CAP
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8, torch.int32], ids=str)
 def test_beam_shared_rule_on_both_sides_of_the_limit(dtype):
     """The staging buffer's one rule (``beam_shared``) and the routing
     rule: at the main path's shapes a block fits ``BLOCK_BUDGET`` (four
@@ -310,7 +339,9 @@ def test_beam_shared_rule_on_both_sides_of_the_limit(dtype):
     leaves fewer slots than candidates (rounds), never fewer than one a
     warp; the largest ef whose block fits ``STAGED_SMEM`` takes the kernel
     and the next one that does not the host loop, as does a link row past
-    ``MAX_CAP``."""
+    ``MAX_CAP``. int32: the packed block (``_packed_shared_rule``)."""
+    if dtype == torch.int32:
+        return _packed_shared_rule()
     dim, w = 768, search_cuda.WARPS
     rb = dim * dtype.itemsize
     design = lambda ef, width=32: search_cuda.search_design_of(  # noqa: E731
@@ -364,3 +395,51 @@ def test_unfiltered_by_items_beam_is_the_filtered_beam_of_every_item(built, name
     got = beam.beam_search_loop(tg, q, qn, start, 48)
     _same(got, beam.beam_search_filtered(tg, q, qn, start, 48, tg.valid.clone()))
     _same(search_cuda.beam_search_rowwise(tg, q, qn, start, 48)[0], got)
+
+
+PACKED_N, PACKED_BITS = 1500, 2048  # 64 lanes
+
+
+@pytest.fixture(scope="module")
+def packed():
+    """A packed graph of 1500 x 2,048 bits (64 lanes) made by the port alone
+    on the CPU: the links of a cosine wave build of 1500 x 32 points in 12
+    clusters (m 8, m0 16), the rows the signs of the points' random
+    projections to 2,048 dimensions (hamming then follows their angles),
+    and 24 queries made the same way. Distances are multiples of 1/2,048,
+    so pools hold ties."""
+    rng = np.random.default_rng(17)
+    centers = rng.standard_normal((12, 32)).astype(np.float32) * 3
+    points = (centers[rng.integers(0, 12, PACKED_N + 24)] + rng.standard_normal((PACKED_N + 24, 32))).astype(np.float32)
+    data, queries = points[:PACKED_N], points[PACKED_N:]
+    g = hnsw.HostGraph.empty(distances.COSINE, 32, 8, 16, capacity=hnsw.slot_capacity(PACKED_N))
+    for i in range(PACKED_N):
+        g.alloc_slot(i)
+    g.vectors[:PACKED_N] = data
+    g.norms[:PACKED_N] = distances.np_norms(distances.COSINE, data)
+    builder.build_graph(g, np.arange(PACKED_N), np.empty(0, np.int64),
+                        builder.BuildOptions(ef_construction=16, wave_size=512, bulk=False), device="cpu")
+    project = rng.standard_normal((32, PACKED_BITS)).astype(np.float32)
+    rows = np.zeros((g.capacity, PACKED_BITS // 32), dtype=np.uint32)
+    rows[:PACKED_N] = codecs.pack(data @ project, distances.HAMMING.codec)
+    dev = hnsw.to_device(g, "cpu")
+    return dataclasses.replace(dev, vectors=torch.from_numpy(distances.as_lanes(rows))), rows, codecs.pack(
+        queries @ project, distances.HAMMING.codec)
+
+
+@pytest.mark.parametrize("name, ef, ef_upper", [("hamming", 16, 1), ("binary quantized cosine", 24, 8)])
+def test_packed_rowwise_equals_host_loop(packed, name, ef, ef_upper):
+    """Packed rows: the plain versions (the kernels' per-row algorithm)
+    equal the host loop slot for slot and bit for bit, through the greedy
+    descent to layer 1 (hamming) or to layer 2 and an 8-wide layer-1 beam
+    (BQ cosine), then the layer-0 beam, where the 10th place ties."""
+    dev, rows, q_lanes = packed
+    metric = distances.by_name(name)
+    dev = dataclasses.replace(dev, metric_name=name, norms=torch.from_numpy(distances.np_norms(metric, rows)))
+    q = torch.from_numpy(distances.as_lanes(q_lanes))
+    qn = torch.from_numpy(distances.np_norms(metric, q_lanes))
+    assert dev.max_level >= 2 and dev.vectors.dtype == torch.int32 and dev.vectors.shape[1] == 64
+    got = search_cuda.hnsw_search_rowwise(dev, q, qn, ef, ef_upper=ef_upper)
+    _same(got, beam.hnsw_search(dev, q, qn, ef, ef_upper=ef_upper))
+    assert bool((got.slots[:, 0] >= 0).all())
+    assert bool((got.dists[:, 9] == got.dists[:, 10]).any()), "no tie at the 10th place"

@@ -188,7 +188,9 @@ def test_a_search_on_the_cpu_records_the_host_loop(built, tmp_path, metric):
 def test_on_the_card_cosine_runs_on_the_kernels_and_hamming_on_the_host_loop(tmp_path):
     """A cosine f32 search records 1 and launches the search kernels; a
     filtered cosine search records 0 (its beam is the host loop); a
-    hamming search records 0 and launches none."""
+    hamming search of 16 bits (2 lanes: the gather kernel's group design,
+    which the search kernels' packed form does not take) records 0 and
+    launches none."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from hannoy_tpu_torch.ops import search_cuda
